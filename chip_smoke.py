@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Smoke run of grtpu_torch on one NVIDIA GPU: build, check, drive, report.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; nothing is caught):
+  1. Require a CUDA device, print its name and power limit, pin float32
+     matmuls and convolutions to full precision (no TF32).
+  2. Build the Hopper FIR kernels from grtpu_torch/csrc (nvcc, sm_90a).
+  3. Hold each kernel against its plain PyTorch twin on the card, at the
+     shapes the main path and the headline workload give it, and time both.
+  4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
+     demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
+     and StreamExecutor on the card, ~16 s of one station, checked for
+     recovered-audio SNR and against the same chain on the plain path; and
+     the headline workload (16 pipes x 2^20 samples x 16 stages of 256
+     taps) through fir_cascade.  Kernel launch counts are read around this
+     phase only.
+  5. Print one JSON line of per-kernel results and, last, the device line.
+
+Exits non-zero, printing no result, without a CUDA device or without the
+grtpu_torch package beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+
+QUAD_RATE = 256e3
+AUDIO_DECIM = 8
+MAIN_SAMPLES = 1 << 22
+MAIN_CHUNK = 65536
+# kernel-vs-twin tolerances on max|kernel - twin| / max|twin|: bf16 products
+# are exact in float32, so the modes differ only in float32 summation order
+# (and, for bf16, in which side of a bf16 rounding boundary a sum lands)
+TOL = {"f32": 1e-5, "bf16x3": 1e-4, "bf16": 3e-2}
+SNR_GATE_DB = 50.0
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card (CUDA events, one warm-up)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def errors(got, ref):
+    """(max abs error, max abs error / max |ref|) of two tensors."""
+    d = (got - ref).abs().max().item()
+    return d, d / max(ref.abs().max().item(), 1e-30)
+
+
+def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
+    err = est - ref
+    return 10 * np.log10((ref ** 2).sum() / max((err ** 2).sum(), 1e-30))
+
+
+def align(ref, est, max_lag=256):
+    """Align est to ref by cross-correlation (the chain's group delay)."""
+    n = min(len(ref), len(est))
+    r, e = ref[:n], est[:n]
+    corr = [np.dot(r[: n - lag], e[lag:n]) for lag in range(max_lag)]
+    lag = int(np.argmax(corr))
+    return r[: n - lag], e[lag:n]
+
+
+def check_kernels(torch, cf, fir, firdes):
+    """Phase 3: every kernel case against its twin; returns per-case rows."""
+    dev = torch.device("cuda")
+    rows = []
+
+    def case(name, kernel, precision, run, twin, reps=10, twin_reps=3):
+        got = run()
+        ref = twin()
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name} {precision}: shape {tuple(got.shape)} vs "
+                 f"{tuple(ref.shape)} or non-finite output")
+        abs_err, rel_err = errors(got, ref)
+        ms = cuda_ms(run, reps)
+        plain_ms = cuda_ms(twin, twin_reps)
+        ok = rel_err <= TOL[precision]
+        print(f"kernel {name:28s} {kernel:16s} {precision:7s} "
+              f"max_rel_err={rel_err:.3e} (tol {TOL[precision]:g}) "
+              f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} {precision}: kernel disagrees with its twin")
+        rows.append(dict(case=name, kernel=kernel, precision=precision,
+                         max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                         plain_ms=plain_ms))
+        return got
+
+    # fir_decim at the main path's shape: one 65,536-sample chunk plus
+    # WfmRcv's 192 history samples, 193 taps, decimate by 8, bf16x3 (the
+    # FirFilter(impl="kernel") default)
+    rng = np.random.RandomState(0)
+    audio_rate = QUAD_RATE / AUDIO_DECIM
+    taps193 = firdes.low_pass(1.0, QUAD_RATE, audio_rate / 2 - 1e3,
+                              audio_rate / 10, firdes.Window.HAMMING)
+    xm = torch.from_numpy(rng.randn(1, MAIN_CHUNK + len(taps193) - 1)
+                          .astype(np.float32)).to(dev)
+    t193 = cf._tapsets(taps193, dev)
+    case("fir_decim 1x65536 K193 d8", "fir_tile_fwd", "bf16x3",
+         lambda: cf.fir_decim(xm, t193, AUDIO_DECIM, precision="bf16x3"),
+         lambda: cf.fir_tile_ref(xm, t193, AUDIO_DECIM, 0,
+                                 MAIN_CHUNK // AUDIO_DECIM, "bf16x3"))
+
+    # fir_decim at the WBFM bank shape (benchmarks/wfm_bench.py: 64 ch x
+    # 2^18 samples at 256 kS/s, 155-tap decimate-by-8 audio FIR)
+    taps155 = firdes.low_pass(1.0, QUAD_RATE, 15e3, 4e3)
+    k = len(taps155)
+    x = torch.from_numpy(rng.randn(64, (1 << 18) + k - 1).astype(np.float32)).to(dev)
+    t155 = cf._tapsets(taps155, dev)
+    for prec in ("bf16x3", "f32", "bf16"):
+        case("fir_decim 64x2^18 K155 d8", "fir_tile_fwd", prec,
+             lambda: cf.fir_decim(x, t155, AUDIO_DECIM, precision=prec),
+             lambda: cf.fir_tile_ref(x, t155, AUDIO_DECIM, 0,
+                                     (1 << 18) // AUDIO_DECIM, prec))
+    del x
+
+    # complex streams at a small shape, against the plain complex FIR
+    k, d = 200, 4
+    xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
+                           + 1j * rng.randn(4, 4096 * d + k - 1)
+                           ).astype(np.complex64)).to(dev)
+    tr = torch.from_numpy((rng.randn(k) / k).astype(np.float32)).to(dev)
+    case("fir_decim_c 4x16k K200 d4", "fir_tile_fwd", "f32",
+         lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
+         lambda: fir.fir_filter(xc, tr, d, "f32"))
+    k, d = 96, 2
+    xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
+                           + 1j * rng.randn(4, 4096 * d + k - 1)
+                           ).astype(np.complex64)).to(dev)
+    tc = torch.from_numpy(((rng.randn(k) + 1j * rng.randn(k)) / k
+                           ).astype(np.complex64)).to(dev)
+    case("fir_decim_cc 4x8k K96 d2", "fir_tile_fwd", "bf16x3",
+         lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
+         lambda: fir.fir_filter(xc, tc, d, "bf16x3"))
+    del xc
+
+    # the headline workload (bench.py): 16 pipes x 2^20 samples, 16 stages
+    # of 256 taps, as an explicit cascade and composed into 4097 taps
+    taps = (np.random.RandomState(0).randn(256) * 0.05).astype(np.float32)
+    comp = fir.compose_taps_power(taps, 16)
+    xb = torch.from_numpy(np.random.RandomState(1).randn(16, 1 << 20)
+                          .astype(np.float32)).to(dev)
+    t256 = cf._tapsets(taps, dev)[0]
+    tcomp = cf._tapsets(comp, dev)
+    headline = {"x": xb, "taps": t256}
+    for prec in ("f32", "bf16x3"):
+        headline[prec] = case(
+            "fir_cascade 16x2^20 S16 K256", "fir_cascade_fwd", prec,
+            lambda: cf.fir_cascade(xb, t256, 16, precision=prec),
+            lambda: cf.fir_cascade_ref(xb, t256, 16, prec), reps=3)
+    case("fir_cascade 16x2^20 K4097", "fir_tile_fwd", "bf16x3",
+         lambda: cf.fir_cascade(xb, tcomp, 1, precision="bf16x3"),
+         lambda: cf.fir_tile_ref(xb, tcomp, 1, len(comp) - 1, 1 << 20,
+                                 "bf16x3"), reps=3, twin_reps=2)
+    xb16 = xb.to(torch.bfloat16)
+    y16 = case("fir_cascade 16x2^20 K4097 bf16in", "fir_tile_fwd", "bf16",
+               lambda: cf.fir_cascade(xb16, tcomp, 1, precision="bf16"),
+               lambda: cf.fir_tile_ref(xb16, tcomp, 1, len(comp) - 1,
+                                       1 << 20, "bf16"), reps=3, twin_reps=2)
+    y32 = cf.fir_cascade(xb, tcomp, 1, precision="bf16")
+    same = torch.equal(y16, y32)
+    print(f"bf16-resident input bit-identical to f32 input at bf16: {same}")
+    if not same:
+        fail("bf16-resident output differs from the f32-input bf16 output")
+    del xb16, y16, y32
+
+    # bench.py's chain-SNR gate against float64, on 2^15 samples
+    xs = np.random.RandomState(7).randn(1, 1 << 15).astype(np.float32)
+    r = xs[0].astype(np.float64)
+    for _ in range(16):
+        r = np.convolve(np.concatenate([np.zeros(255), r]),
+                        taps.astype(np.float64), "valid")
+    xs_t = torch.from_numpy(xs).to(dev)
+    for label, xin, prec in (("bf16x3", xs_t, "bf16x3"),
+                             ("bf16-resident bf16", xs_t.to(torch.bfloat16),
+                              "bf16")):
+        y = cf.fir_cascade(xin, tcomp, 1, precision=prec)[0].cpu().numpy()
+        s = snr_db(r, y.astype(np.float64))
+        print(f"composed 4097-tap {label}: chain SNR vs float64 = {s:.2f} dB "
+              f"(gate {SNR_GATE_DB} dB)")
+        if not s >= SNR_GATE_DB:
+            fail(f"composed {label} chain SNR {s:.2f} dB < {SNR_GATE_DB} dB")
+    return rows, headline
+
+
+def wbfm_graph(torch, kernel: bool):
+    from grtpu_torch import Graph
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.blocks.analog import FrequencyModulator, QuadratureDemod
+    from grtpu_torch.blocks.filter import FirFilter
+    from grtpu_torch.models.fm import FmDeemph, WfmRcv
+    from grtpu_torch.utils import firdes
+
+    g = Graph()
+    pin = g.add_input(Port(torch.float32))
+    pout = g.add_output(Port(torch.float32))
+    mod = FrequencyModulator(2 * np.pi * 75e3 / QUAD_RATE)
+    if kernel:
+        # WfmRcv's chain, its audio FIR on the Hopper kernel
+        audio_rate = QUAD_RATE / AUDIO_DECIM
+        taps = firdes.low_pass(1.0, QUAD_RATE, audio_rate / 2 - 1e3,
+                               audio_rate / 10, firdes.Window.HAMMING)
+        g.connect(pin, mod,
+                  QuadratureDemod(QUAD_RATE / (2 * math.pi * 75e3)),
+                  FirFilter(AUDIO_DECIM, taps, "fff", impl="kernel"),
+                  FmDeemph(audio_rate, 75e-6), pout)
+    else:
+        g.connect(pin, mod, WfmRcv(QUAD_RATE, AUDIO_DECIM), pout)
+    return g
+
+
+def run_main_path(torch, cf, headline):
+    """Phase 4: the WBFM chain through Graph + StreamExecutor on the card
+    (kernel path, then the plain path), and the headline workload through
+    fir_cascade.  Launch counts cover exactly these calls."""
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.models.fm import FmDeemph
+
+    t = np.arange(MAIN_SAMPLES) / QUAD_RATE
+    msg = (0.5 * np.sin(2 * np.pi * 1000.0 * t)).astype(np.float32)
+    msg_dev = torch.from_numpy(msg).to("cuda")
+    executors = {kind: StreamExecutor(wbfm_graph(torch, kind == "kernel"),
+                                      chunk_size=MAIN_CHUNK, device="cuda")
+                 for kind in ("kernel", "plain")}
+    # warm-up on four chunks (cuBLAS handles, first-call allocations) in
+    # executors of their own, before the counted run
+    for kind in ("kernel", "plain"):
+        warm = StreamExecutor(wbfm_graph(torch, kind == "kernel"),
+                              chunk_size=MAIN_CHUNK, device="cuda")
+        warm.run(msg_dev[:4 * MAIN_CHUNK])
+    torch.cuda.synchronize()
+
+    for name in cf.launches:
+        cf.launches[name] = 0
+    audio, rate = {}, {}
+    for kind in ("kernel", "plain"):
+        t0 = time.perf_counter()
+        y = executors[kind].run(msg_dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        audio[kind] = y.cpu().numpy()
+        rate[kind] = MAIN_SAMPLES / dt / 1e6
+    yb = cf.fir_cascade(headline["x"], headline["taps"], 16, precision="f32")
+    torch.cuda.synchronize()
+    counts = dict(cf.launches)
+
+    for kind in ("kernel", "plain"):
+        print(f"main path WBFM ({kind}): {MAIN_SAMPLES} samples in "
+              f"{MAIN_SAMPLES / rate[kind] / 1e6:.3f} s = "
+              f"{rate[kind]:.2f} Msamples/s (chunk {MAIN_CHUNK})")
+    print(f"main path launches: {counts}")
+
+    y = audio["kernel"]
+    if y.shape != (MAIN_SAMPLES // AUDIO_DECIM,) or not np.isfinite(y).all():
+        fail(f"WBFM output shape {y.shape} or non-finite values")
+    # recovered-audio SNR against the de-emphasized message
+    g = Graph()
+    p = g.add_input(Port(torch.float32))
+    o = g.add_output(Port(torch.float32))
+    g.connect(p, FmDeemph(QUAD_RATE / AUDIO_DECIM, 75e-6), o)
+    ref = StreamExecutor(g, chunk_size=8192, device="cuda").run(
+        msg[::AUDIO_DECIM]).cpu().numpy()
+    settle = 512
+    r, e = align(ref[settle:-settle], y[settle:-settle])
+    s = snr_db(r.astype(np.float64), e.astype(np.float64))
+    print(f"WBFM recovered-audio SNR: {s:.2f} dB (gate 30 dB)")
+    if not s > 30.0:
+        fail(f"WBFM audio SNR {s:.2f} dB <= 30 dB")
+    diff = np.abs(y - audio["plain"]).max() / np.abs(audio["plain"]).max()
+    print(f"WBFM kernel path vs plain path: max_rel_err={diff:.3e} "
+          f"(tol {TOL['bf16x3']:g}, the kernel's bf16x3 default)")
+    if not diff <= TOL["bf16x3"]:
+        fail("kernel WBFM chain disagrees with the plain chain")
+    if not torch.equal(yb, headline["f32"]):
+        fail("headline workload output differs from the checked cascade output")
+    for name in cf.launches:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    return counts, rate
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this check runs only on a GPU", file=sys.stderr)
+        return 1
+    if not (REPO / "grtpu_torch" / "__init__.py").exists():
+        print(f"chip_smoke: grtpu_torch not found beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+
+    # phase 1: device and precision
+    smi = gpu_line()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    from grtpu_torch.ops import _build, cuda_fir as cf, fir
+    from grtpu_torch.utils import firdes
+
+    cached = _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernels built: {_build.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({'loaded from cache' if cached else 'nvcc ran'})", flush=True)
+
+    # phase 3: each kernel against its twin
+    rows, headline = check_kernels(torch, cf, fir, firdes)
+
+    # phase 4: the main path
+    counts, rate = run_main_path(torch, cf, headline)
+
+    # phase 5: report
+    pick = {"fir_tile_fwd": ("fir_decim 64x2^18 K155 d8", "bf16x3"),
+            "fir_cascade_fwd": ("fir_cascade 16x2^20 S16 K256", "f32")}
+    kernels = []
+    for name, (case_name, prec) in pick.items():
+        row = next(r for r in rows if r["case"] == case_name
+                   and r["precision"] == prec)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "grtpu_torch/csrc/fir_tile.cu",
+            "replaces": "grtpu/ops/pallas_fir.py:70",
+            "launches": counts[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"]})
+        print(f"reported for {name}: {case_name} {prec}")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

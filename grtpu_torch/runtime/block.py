@@ -1,0 +1,163 @@
+"""Block protocol: the analog of ``gr_block``, over torch tensors.
+
+Port of ``grtpu.runtime.block``.  A Block is a function over a time-block:
+
+    state', (y0, y1, ...) = block.apply(state, x0, x1, ...)
+
+where each input ``xi`` carries ``n + history - 1`` items — the executor
+prepends the last ``history - 1`` items of the previous time-block (the
+halo).  Each output holds exactly ``n // decim * interp`` items.
+
+State is a tensor, a tuple of tensors, or ``()`` for a stateless block.  The
+executor moves it to its device and carries it between time-blocks, so a
+whole flowgraph checkpoints by saving those tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_NUMPY_TO_TORCH = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or a numpy type."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NUMPY_TO_TORCH[np.dtype(dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Port:
+    """Typed stream endpoint: torch dtype + per-item vector length.
+
+    A stream with vlen == 1 is a rank-1 tensor of shape (n,); vlen > 1 is
+    rank-2 of shape (n, vlen).  ``dtype`` may be given as a torch or numpy
+    dtype and is held as a torch dtype.
+    """
+
+    dtype: Any
+    vlen: int = 1
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", torch_dtype(self.dtype))
+        if self.vlen < 1:
+            raise ValueError(f"vlen must be >= 1, got {self.vlen}")
+
+    def item_shape(self) -> Tuple[int, ...]:
+        return () if self.vlen == 1 else (self.vlen,)
+
+    def chunk_shape(self, n: int) -> Tuple[int, ...]:
+        return (n,) + self.item_shape()
+
+    def compatible(self, other: "Port") -> bool:
+        return self.dtype == other.dtype and self.vlen == other.vlen
+
+    def __repr__(self):
+        return f"Port({str(self.dtype).replace('torch.', '')}, vlen={self.vlen})"
+
+
+def port_b(vlen: int = 1) -> Port:
+    return Port(torch.uint8, vlen)
+
+
+def port_s(vlen: int = 1) -> Port:
+    return Port(torch.int16, vlen)
+
+
+def port_i(vlen: int = 1) -> Port:
+    return Port(torch.int32, vlen)
+
+
+def port_f(vlen: int = 1) -> Port:
+    return Port(torch.float32, vlen)
+
+
+def port_c(vlen: int = 1) -> Port:
+    return Port(torch.complex64, vlen)
+
+
+class Block:
+    """Base class for stream blocks.
+
+    Subclasses set:
+      * ``in_ports`` / ``out_ports``: sequences of :class:`Port`.
+      * ``history``: input lookback in items (>= 1; 1 means none).  The
+        executor delivers each input with ``history - 1`` leading items.
+      * ``decim`` / ``interp``: fixed rate change — consume ``n`` (a multiple
+        of ``decim``), produce ``n // decim * interp``.
+      * ``variable_rate``: True for data-dependent production.  The port's
+        executor does not run such blocks yet (it raises).
+
+    and implement ``init_state()`` and ``apply(state, *inputs)``.
+    """
+
+    in_ports: Sequence[Port] = ()
+    out_ports: Sequence[Port] = ()
+    history: int = 1
+    decim: int = 1
+    interp: int = 1
+    variable_rate: bool = False
+    # True for blocks that emit stream tags during work; the port's
+    # executor does not run such blocks yet (it raises).
+    emits_tags: bool = False
+
+    _instance_counter = [0]
+    # Bumped whenever ANY block's parameters change (see touch());
+    # executors snapshot it to detect stale-parameter use.
+    _global_version = [0]
+
+    def __init__(self, name: str | None = None):
+        Block._instance_counter[0] += 1
+        self.uid = Block._instance_counter[0]
+        self.name = name or f"{type(self).__name__}_{self.uid}"
+        self.in_ports = tuple(self.in_ports)
+        self.out_ports = tuple(self.out_ports)
+        self._version = 0
+
+    def touch(self):
+        """Mark this block's parameters as changed.
+
+        Parameter setters (set_taps, ...) call this.  A built StreamExecutor's
+        ``step()`` raises if any of its blocks was touched after the build,
+        so a retune never silently runs with the executor's old view of the
+        flowgraph."""
+        self._version += 1
+        Block._global_version[0] += 1
+
+    # -- contract -----------------------------------------------------------
+    def init_state(self) -> Any:
+        """Initial carried state: a tensor, a tuple of tensors, or ``()``."""
+        return ()
+
+    def apply(self, state, *inputs):
+        """Process one time-block.
+
+        Args:
+          state: carried state from the previous call.
+          *inputs: one tensor per input port, shaped ``(n + history - 1, [vlen])``.
+
+        Returns:
+          ``(new_state, outputs)`` with ``outputs`` a tuple of tensors, one
+          per output port, each shaped ``(n // decim * interp, [vlen])``.
+          Blocks with a single output may return the bare tensor.
+        """
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name!r}>"

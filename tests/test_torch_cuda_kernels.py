@@ -1,0 +1,134 @@
+"""The Hopper FIR kernels against their plain PyTorch twins, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``) and skips
+elsewhere.  The file imports no JAX, so it also runs on a machine without
+it; from the repository root on a GPU machine:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
+
+Tolerances on max|kernel - twin| / max|twin|: f32 < 1e-5, bf16x3 < 1e-4,
+bf16 < 3e-2 (bf16 products are exact in float32; the kernel and the twin
+sum in different orders).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from grtpu_torch.ops import cuda_fir as cf  # noqa: E402
+from grtpu_torch.ops.fir import fir_filter  # noqa: E402
+
+TOL = {"f32": 1e-5, "bf16x3": 1e-4, "bf16": 3e-2}
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def rel(a, b):
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def randn(dev, *shape, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+@pytest.mark.parametrize("k,d,c,n", [(155, 8, 3, 8 * 1000), (31, 2, 2, 2 * 777),
+                                     (1300, 1, 2, 3000), (7, 5, 1, 5 * 33),
+                                     (4500, 1, 1, 2000), (2100, 3, 2, 3 * 500)])
+def test_fir_decim(dev, precision, k, d, c, n):
+    x = randn(dev, c, n + k - 1, seed=k)
+    taps = randn(dev, k, seed=k + 1) / k
+    got = cf.fir_decim(x, taps, d, precision=precision)
+    ref = cf.fir_tile_ref(x, taps[None], d, 0, n // d, precision)
+    torch.cuda.synchronize()
+    assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+def test_tapsets_and_lead(dev, precision):
+    x = randn(dev, 6, 2000, seed=3)
+    ts = randn(dev, 3, 40, seed=4) / 40
+    got = cf._tile(x, ts, 3, 39, 600, precision)
+    ref = cf.fir_tile_ref(x, ts, 3, 39, 600, precision)
+    assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+@pytest.mark.parametrize("s,k,n", [(16, 256, 1 << 14), (2, 64, 384),
+                                   (5, 17, 128 * 77)])
+def test_fir_cascade(dev, precision, s, k, n):
+    x = randn(dev, 2, n, seed=s)
+    taps = randn(dev, k, seed=k) * 0.1
+    got = cf.fir_cascade(x, taps, s, precision=precision)
+    ref = cf.fir_cascade_ref(x, taps, s, precision)
+    assert rel(got, ref) < TOL[precision]
+
+
+def test_complex_planes(dev):
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.randn(2, 4096 + 95) + 1j * rng.randn(2, 4096 + 95))
+                         .astype(np.complex64)).to(dev)
+    tc = torch.from_numpy(((rng.randn(96) + 1j * rng.randn(96)) / 96)
+                          .astype(np.complex64)).to(dev)
+    assert rel(cf.fir_decim_cc(x, tc, 2, precision="f32"),
+               fir_filter(x, tc, 2, "f32")) < TOL["f32"]
+    assert rel(cf.fir_decim_c(x, tc.real.contiguous(), 4, precision="f32"),
+               fir_filter(x, tc.real.contiguous(), 4, "f32")) < TOL["f32"]
+
+
+def test_bf16_resident_bit_identical(dev):
+    x = randn(dev, 2, 4096, seed=6)
+    taps = randn(dev, 515, seed=7) * 0.05
+    y32 = cf.fir_cascade(x, taps, 1, precision="bf16")
+    y16 = cf.fir_cascade(x.to(torch.bfloat16), taps, 1, precision="bf16")
+    assert torch.equal(y32, y16)
+
+
+def test_launch_counts(dev):
+    before = dict(cf.launches)
+    cf.fir_decim(randn(dev, 1, 800 + 30), randn(dev, 31), 8)
+    cf.fir_cascade(randn(dev, 1, 512), randn(dev, 9), 3)
+    cf.fir_decim_cc(torch.complex(randn(dev, 1, 64 + 8), randn(dev, 1, 72)),
+                    torch.complex(randn(dev, 9), randn(dev, 9)), 2)
+    assert cf.launches["fir_tile_fwd"] == before["fir_tile_fwd"] + 3
+    assert cf.launches["fir_cascade_fwd"] == before["fir_cascade_fwd"] + 1
+
+
+def test_wbfm_kernel_graph_matches_plain(dev):
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.blocks.analog import QuadratureDemod
+    from grtpu_torch.blocks.filter import FirFilter
+    from grtpu_torch.models.fm import FmDeemph, WfmRcv
+    from grtpu_torch.utils import firdes
+
+    fs, n = 256e3, 1 << 15
+    phase = np.cumsum(2 * np.pi * 75e3 / fs * 0.5
+                      * np.sin(2 * np.pi * 1e3 * np.arange(n) / fs))
+    iq = np.exp(1j * phase).astype(np.complex64)
+    taps = firdes.low_pass(1.0, fs, fs / 16 - 1e3, fs / 80,
+                           firdes.Window.HAMMING)
+    outs = []
+    for kernel in (True, False):
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pout = g.add_output(Port(torch.float32))
+        if kernel:
+            g.connect(pin, QuadratureDemod(fs / (2 * np.pi * 75e3)),
+                      FirFilter(8, taps, "fff", impl="kernel"),
+                      FmDeemph(fs / 8), pout)
+        else:
+            g.connect(pin, WfmRcv(fs, 8), pout)
+        outs.append(StreamExecutor(g, chunk_size=8192, device=dev).run(iq))
+    assert rel(outs[0], outs[1]) < TOL["bf16x3"]
