@@ -18,11 +18,17 @@ What changes in the port:
 
 This package imports neither ``jax`` nor ``grtpu``.
 
-Layout (the slice ported so far):
+Layout (the slices ported so far: WBFM and DMR 4FSK):
     grtpu_torch.runtime -- Block protocol, graph builder, time-block executor
-    grtpu_torch.ops     -- FIR substrate, FFT filter, demod/IIR, CUDA kernels
+                           (fixed rate and the variable-rate FIFO)
+    grtpu_torch.ops     -- FIR substrate (decimating and interpolating), FFT
+                           filter, demod/IIR/control-loop helpers, the MMSE
+                           interpolator bank, CUDA kernels
     grtpu_torch.blocks  -- analog, filter and gengen blocks of the WBFM chain
-    grtpu_torch.models  -- the WBFM receiver (WfmRcv, FmDeemph)
+    grtpu_torch.digital -- constellations, Costas and M&M loops, the 4FSK /
+                           GMSK / PSK modems, their graph blocks
+    grtpu_torch.models  -- the WBFM receiver (WfmRcv, FmDeemph) and the DMR
+                           burst layer (DmrReceiver, DmrTransmitter)
     grtpu_torch.utils   -- firdes tap design (numpy)
 """
 

@@ -1,7 +1,7 @@
-"""Filter blocks of the WBFM chain (port of ``grtpu.blocks.filter``).
+"""Filter blocks (port of ``grtpu.blocks.filter``).
 
-Analogs: gr_fir_filter_XXX, gr_fft_filter_{ccc,fff}, gr_iir_filter_ffd,
-gr_single_pole_iir_filter_ff.  Each block binds a ``grtpu_torch.ops``
+Analogs: gr_fir_filter_XXX, gr_interp_fir_filter_XXX,
+gr_fft_filter_{ccc,fff}, gr_iir_filter_ffd, gr_single_pole_iir_filter_ff.  Each block binds a ``grtpu_torch.ops``
 function into the Block protocol: history = ntaps so the executor supplies
 the halo.  Taps stay host numpy arrays (as in grtpu); each block keeps one
 copy per device it has run on, so a step moves no taps to the device.
@@ -16,6 +16,7 @@ from grtpu_torch.runtime.block import Block, Port
 from grtpu_torch.ops import cuda_fir, dsp
 from grtpu_torch.ops.fft_filter import fft_filter as _fftfir
 from grtpu_torch.ops.fir import as_taps, fir_filter as _fir
+from grtpu_torch.ops.fir import interp_fir_filter as _ifir
 
 
 def _dt(tag):
@@ -95,6 +96,28 @@ class FftFilter(FirFilter):
 
     def __init__(self, decimation: int, taps, sig: str = "ccc", name=None):
         super().__init__(decimation, taps, sig, name, impl="fft")
+
+
+class InterpFirFilter(Block):
+    """Polyphase interpolating FIR (gr_interp_fir_filter_XXX)."""
+
+    def __init__(self, interpolation: int, taps, sig: str = "fff", name=None):
+        in_t, out_t, tap_t = sig
+        self.in_ports = (Port(_dt(in_t)),)
+        self.out_ports = (Port(_dt(out_t)),)
+        taps = np.asarray(taps)
+        self.interp = interpolation
+        self.history = -(-len(taps) // interpolation)  # taps per phase
+        super().__init__(name)
+        self.taps = np.asarray(
+            taps, np.complex64 if tap_t == "c" else np.float32)
+        self._taps_dev = {}
+
+    def apply(self, state, x):
+        taps = self._taps_dev.get(x.device)
+        if taps is None:
+            taps = self._taps_dev[x.device] = as_taps(self.taps, x.device)
+        return state, _ifir(x, taps, self.interp).to(self.out_ports[0].dtype)
 
 
 class IirFilter(Block):

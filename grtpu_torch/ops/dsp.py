@@ -1,5 +1,6 @@
-"""Scalar DSP primitives of the WBFM chain: FM discriminator, FM modulator,
-first-order recurrences and IIR filters, in PyTorch.
+"""Scalar DSP primitives of the WBFM and DMR chains: FM discriminator, FM
+modulator, first-order recurrences, IIR filters and control-loop helpers,
+in PyTorch.
 
 Port of the matching functions of ``grtpu.ops.dsp``.  Analogs of:
   * gr_quadrature_demod_cf (general/gr_quadrature_demod_cf.cc:47-62) — FM
@@ -8,9 +9,12 @@ Port of the matching functions of ``grtpu.ops.dsp``.  Analogs of:
   * gr_single_pole_iir / gr_iir_filter_ffd — recursive filters.  A stable
     constant pole becomes a truncated FIR (the de-emphasis path); slow poles
     use a log-depth scan written out in torch ops.
+  * gri_control_loop — loop gains and phase wrapping for the carrier loops.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -221,4 +225,20 @@ def iir_filter(x: torch.Tensor, state, fftaps, fbtaps):
 def iir_init_state(nff: int, nfb: int):
     return (torch.zeros((max(nff - 1, 0),), dtype=torch.float32),
             torch.zeros((max(nfb - 1, 0),), dtype=torch.float32))
+
+
+# ------------------------------------------------------------- control loop
+def control_loop_gains(loop_bw: float, damping: float = math.sqrt(2.0) / 2.0):
+    """2nd-order PI loop alpha/beta from bandwidth & damping
+    (gri_control_loop.cc:34-46).  Host floats."""
+    denom = 1.0 + 2.0 * damping * loop_bw + loop_bw * loop_bw
+    alpha = (4 * damping * loop_bw) / denom
+    beta = (4 * loop_bw * loop_bw) / denom
+    return alpha, beta
+
+
+def phase_wrap(phase: torch.Tensor) -> torch.Tensor:
+    """Wrap to [-pi, pi] (gri_control_loop::phase_wrap); floored modulo,
+    as ``jnp.mod``."""
+    return torch.remainder(phase + np.pi, 2 * np.pi) - np.pi
 

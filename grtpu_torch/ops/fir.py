@@ -1,7 +1,7 @@
 """FIR filtering as Toeplitz block matmuls, in PyTorch.
 
 Port of ``grtpu.ops.fir`` (``fir_filter``, ``batch_fir_filter``,
-``compose_taps``, ``compose_taps_power``).  The formulation is grtpu's: for
+``interp_fir_filter``, ``compose_taps``, ``compose_taps_power``).  The formulation is grtpu's: for
 a block of B consecutive outputs the correlation
 
     y[m*B + b] = sum_k h[k] * x[m*B + b + k]
@@ -218,6 +218,41 @@ def batch_fir_filter(x: torch.Tensor, taps, decim: int = 1,
 
     The window matrices of all channels stack on the matmul M axis."""
     return fir_filter(x, taps, decim, precision)
+
+
+def interp_fir_filter(x: torch.Tensor, taps, interp: int,
+                      precision: str = "f32") -> torch.Tensor:
+    """Polyphase interpolating FIR (gr_interp_fir_filter_XXX semantics).
+
+    Args:
+      x: input of length ``n + ceil(K/L) - 1`` on its last axis (history =
+        taps per phase); leading axes are batch axes.
+      taps: prototype taps, length K (zero-padded to a multiple of L).
+      interp: L outputs per input.
+      precision: "f32", "bf16x3" or "bf16" (see the module docstring).
+
+    Returns y of length n * L on its last axis, exactly upsample-by-L then
+    convolution with ``taps``: ``y[i*L + p] = sum_c taps[p + c*L] x[i - c]``.
+    The L phase tap matrices sit side by side on the matmul's output axis.
+    """
+    l = interp
+    taps = as_taps(taps, x.device)
+    k = taps.shape[0]
+    kp = -(-k // l)
+    n = x.shape[-1] - (kp - 1)
+    tp = pad_last(taps, 0, kp * l - k)
+    block = _block_for(n)
+    m = -(-n // block)
+    need = m * block + kp - 1
+    xp = pad_last(x, 0, max(0, need - x.shape[-1]))
+    w = _window_matrix(xp, kp, block)                 # (..., m, kp+block-1)
+    t = torch.cat([_tap_matrix(torch.flip(tp[p::l], dims=(0,)), block)
+                   for p in range(l)], dim=1)         # (kp+block-1, l*block)
+    y = _matmul(w, t, precision)                      # (..., m, l*block)
+    # y[..., i, p*block + b] is phase p of output m*block + b: interleave
+    y = y.reshape(x.shape[:-1] + (m, l, block)).transpose(-1, -2)
+    y = y.reshape(x.shape[:-1] + (-1,))
+    return y[..., :n * l].to(_out_dtype(x.dtype, taps.dtype))
 
 
 # ---------------------------------------------------------------- composition

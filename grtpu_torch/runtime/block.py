@@ -8,9 +8,9 @@ where each input ``xi`` carries ``n + history - 1`` items — the executor
 prepends the last ``history - 1`` items of the previous time-block (the
 halo).  Each output holds exactly ``n // decim * interp`` items.
 
-State is a tensor, a tuple of tensors, or ``()`` for a stateless block.  The
-executor moves it to its device and carries it between time-blocks, so a
-whole flowgraph checkpoints by saving those tensors.
+State is a tensor, a tuple or NamedTuple of tensors, or ``()`` for a
+stateless block.  The executor moves it to its device and carries it between
+time-blocks, so a whole flowgraph checkpoints by saving those tensors.
 """
 
 from __future__ import annotations
@@ -101,8 +101,13 @@ class Block:
         executor delivers each input with ``history - 1`` leading items.
       * ``decim`` / ``interp``: fixed rate change — consume ``n`` (a multiple
         of ``decim``), produce ``n // decim * interp``.
-      * ``variable_rate``: True for data-dependent production.  The port's
-        executor does not run such blocks yet (it raises).
+      * ``variable_rate``: True for data-dependent production (clock
+        recovery).  Such blocks return ``(y_padded, n_valid)`` where the
+        valid items are a contiguous prefix of ``y_padded`` (length
+        ``max_out_for(n_delivered)``) and ``n_valid`` is a 0-d int32 tensor.
+        The executor compacts the valid items into a carried FIFO and runs
+        the downstream blocks on fixed-size emissions drained from it (see
+        StreamExecutor).
 
     and implement ``init_state()`` and ``apply(state, *inputs)``.
     """
@@ -142,7 +147,8 @@ class Block:
 
     # -- contract -----------------------------------------------------------
     def init_state(self) -> Any:
-        """Initial carried state: a tensor, a tuple of tensors, or ``()``."""
+        """Initial carried state: a tensor, a (Named)tuple of tensors, or
+        ``()``."""
         return ()
 
     def apply(self, state, *inputs):
@@ -158,6 +164,36 @@ class Block:
           Blocks with a single output may return the bare tensor.
         """
         raise NotImplementedError
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def relative_rate(self):
+        """Output items per input item (gr_block.h:182-187).  For
+        variable-rate blocks this is the *nominal* estimate."""
+        if self.variable_rate:
+            return self.nominal_rate
+        return self.interp / self.decim
+
+    @property
+    def nominal_rate(self) -> float:
+        """Expected output items per fresh input item.  Variable-rate blocks
+        override (e.g. 1/sps for clock recovery); the executor sizes FIFO
+        emissions from it."""
+        return self.interp / self.decim
+
+    def max_out_for(self, n_delivered: int) -> int:
+        """Static bound on items produced from one delivered chunk of
+        ``n_delivered`` items (including the ``history - 1`` halo).
+        Variable-rate blocks MUST override this with the exact padded length
+        their ``apply`` returns; production beyond it is deferred to the
+        next chunk via the carried state."""
+        return (n_delivered - (self.history - 1)) // self.decim * self.interp
+
+    def noutput_for(self, n_in: int) -> int:
+        if n_in % self.decim:
+            raise ValueError(
+                f"{self.name}: input chunk {n_in} not a multiple of decim={self.decim}")
+        return n_in // self.decim * self.interp
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

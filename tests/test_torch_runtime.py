@@ -271,6 +271,8 @@ class TestGuards:
             ex.add_tags(0, [])
 
     def test_variable_rate_block_raises(self):
+        """Variable-rate blocks run now; one that breaks the
+        (state, (y_padded, n_valid)) contract raises."""
         class Vr(grtpu_torch.Block):
             variable_rate = True
 
@@ -279,12 +281,16 @@ class TestGuards:
                 self.out_ports = (grtpu_torch.Port(torch.float32),)
                 super().__init__()
 
+            def apply(self, state, x):
+                return state, x
+
         g = grtpu_torch.Graph()
         pin = g.add_input(grtpu_torch.Port(torch.float32))
         pout = g.add_output(grtpu_torch.Port(torch.float32))
         g.connect(pin, Vr(), pout)
-        with pytest.raises(NotImplementedError, match="item 1"):
-            grtpu_torch.StreamExecutor(g, chunk_size=8)
+        ex = grtpu_torch.StreamExecutor(g, chunk_size=8)
+        with pytest.raises(ValueError, match="variable-rate apply must return"):
+            ex.run(np.zeros(8))
 
 
 class TestCheckpoint:

@@ -78,8 +78,13 @@ def test_tags_identical():
 
 def test_import_pulls_in_no_jax():
     """Packaging guard: the port imports neither jax nor grtpu."""
-    code = ("import sys, grtpu_torch, grtpu_torch.blocks, grtpu_torch.models, "
-            "grtpu_torch.ops.cuda_fir, grtpu_torch.ops.fft_filter; "
+    code = ("import sys, grtpu_torch, grtpu_torch.blocks.analog, "
+            "grtpu_torch.blocks.filter, grtpu_torch.blocks.gengen, "
+            "grtpu_torch.models.fm, grtpu_torch.models.dmr, "
+            "grtpu_torch.ops.cuda_fir, grtpu_torch.ops.fft_filter, "
+            "grtpu_torch.ops.mmse_interp, grtpu_torch.digital.blocks, "
+            "grtpu_torch.digital.constellation, grtpu_torch.digital.loops, "
+            "grtpu_torch.digital.modems; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'grtpu' "
             "or m.startswith('grtpu.')); print(bad); "
