@@ -11,13 +11,24 @@ Phases (each raises on failure; nothing is caught):
   2. Build the Hopper FIR kernels from grtpu_torch/csrc (nvcc, sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
+     Each case prints its bound (the larger of useful FLOP over the peak its
+     mode can use and bytes over the memory rate) and the kernel's share of
+     it; where one PyTorch call computes the same function
+     (torch.nn.functional.conv1d), that call is timed in turns with the
+     kernel as library_ms (it is used nowhere in grtpu_torch; the bf16x3
+     cases are held against the call in float32, which meets their
+     tolerance), and the decimating cases, which are small enough to sit on
+     the host's launch cost, are timed again with both replayed from a CUDA
+     graph; where a case runs on the tensor cores, the FMA route is forced on the same input and
+     timed in turns too.
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
      recovered-audio SNR and against the same chain on the plain path; and
      the headline workload (16 pipes x 2^20 samples x 16 stages of 256
-     taps) through fir_cascade.  Kernel launch counts are read around this
-     phase only.
+     taps) through fir_cascade: the explicit cascade in f32 and bf16x3 and
+     the composed 4097-tap filter in bf16x3 and on the bf16-resident stream.
+     Kernel launch counts are read around this phase only.
   5. Drive the DMR 4FSK receive slice on the card (it reaches no hand
      kernel; its matched filter is a float32 Toeplitz matmul):
      a. the burst bank at full width (benchmarks/dmr_bench.py: 128 channels
@@ -61,6 +72,11 @@ MAIN_CHUNK = 65536
 # (and, for bf16, in which side of a bf16 rounding boundary a sum lands)
 TOL = {"f32": 1e-5, "bf16x3": 1e-4, "bf16": 3e-2}
 SNR_GATE_DB = 50.0
+# published peaks of one H100 SXM (dense): what each precision mode can use.
+# bf16x3 takes three bf16 products a tap.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "bf16x3": 989e12}
+PRODUCTS = {"f32": 1, "bf16": 1, "bf16x3": 3}
+HBM_BYTES_PER_S = 3.35e12
 # the DMR slice (benchmarks/dmr_bench.py:35-36 for the bank's shape)
 DMR_CHANNELS = 128
 DMR_SAMPLES = 110592
@@ -101,6 +117,36 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(a, b, reps_a: int, reps_b: int):
+    """Mean milliseconds of ``a()`` and of ``b()``, timed a, b, b, a."""
+    a1 = cuda_ms(a, reps_a)
+    b1 = cuda_ms(b, reps_b)
+    b2 = cuda_ms(b, reps_b)
+    a2 = cuda_ms(a, reps_a)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` replayed from one CUDA graph of ``reps``
+    calls: the card's time for it without the host's cost of launching."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps
+
+
+def bound(flop: float, nbytes: float, precision: str):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    ``flop`` useful real FLOP (2 per tap and output) in ``precision`` and
+    ``nbytes`` moved (each input and output byte once)."""
+    ops_ms = flop * PRODUCTS[precision] / PEAK_FLOPS[precision] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def errors(got, ref):
     """(max abs error, max abs error / max |ref|) of two tensors."""
     d = (got - ref).abs().max().item()
@@ -126,7 +172,8 @@ def check_kernels(torch, cf, fir, firdes):
     dev = torch.device("cuda")
     rows = []
 
-    def case(name, kernel, precision, run, twin, reps=10, twin_reps=3):
+    def case(name, kernel, precision, run, twin, flop, nbytes, reps=10,
+             twin_reps=3, library=None, lib_reps=10, fma=None, graphed=False):
         got = run()
         ref = twin()
         torch.cuda.synchronize()
@@ -134,19 +181,58 @@ def check_kernels(torch, cf, fir, firdes):
             fail(f"{name} {precision}: shape {tuple(got.shape)} vs "
                  f"{tuple(ref.shape)} or non-finite output")
         abs_err, rel_err = errors(got, ref)
-        ms = cuda_ms(run, reps)
+        bound_ms, bound_by = bound(flop, nbytes, precision)
+        times = []
+        library_ms = fma_ms = None
+        if library is not None:
+            lib_err = errors(library().reshape(ref.shape).float(), ref)[1]
+            if not lib_err <= TOL[precision]:
+                fail(f"{name} {precision}: the library call is off its twin "
+                     f"by {lib_err:.3e}: it does not compute this function")
+            ms, library_ms = in_turns(run, library, reps, lib_reps)
+            times.append(ms)
+        if fma is not None:
+            ms, fma_ms = in_turns(run, fma, reps, reps)
+            times.append(ms)
+        if not times:
+            times.append(cuda_ms(run, reps))
+        ms = sum(times) / len(times)
         plain_ms = cuda_ms(twin, twin_reps)
+        in_graph = ""
+        if graphed:
+            # small cases sit on the host's launch cost: the card's own time
+            in_graph = (f" in_a_graph: kernel_ms={graph_ms(run, 20):.4f} "
+                        f"library_ms={graph_ms(library, 20):.4f}")
         ok = rel_err <= TOL[precision]
-        print(f"kernel {name:28s} {kernel:16s} {precision:7s} "
+        lib = ("none" if library_ms is None else
+               f"{library_ms:.4f} (conv1d, rel_err vs twin {lib_err:.1e})")
+        print(f"kernel {name:28s} {kernel:19s} {precision:7s} "
               f"max_rel_err={rel_err:.3e} (tol {TOL[precision]:g}) "
               f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"share_of_bound={bound_ms / ms:.3f} library_ms={lib}"
+              + ("" if fma_ms is None else f" fma_route_ms={fma_ms:.4f}")
+              + in_graph
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {precision}: kernel disagrees with its twin")
+        if fma_ms is not None and not ms < fma_ms:
+            fail(f"{name} {precision}: the tensor-core route ({ms:.4f} ms) is "
+                 f"not faster than the FMA route ({fma_ms:.4f} ms)")
         rows.append(dict(case=name, kernel=kernel, precision=precision,
                          max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-                         plain_ms=plain_ms))
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         fma_ms=fma_ms))
         return got
+
+    def conv1d(x, taps, decim):
+        """The one PyTorch call that computes a single-stage real FIR (cuDNN;
+        TF32 is off): taps flipped, stride = decim.  Timed only.  On float32
+        tensors it serves the f32 and the bf16x3 cases alike."""
+        w = taps.to(x.dtype).flip(-1)[None, None, :]
+        xin = x[:, None, :]
+        return lambda: torch.nn.functional.conv1d(xin, w, stride=decim)
 
     # fir_decim at the main path's shape: one 65,536-sample chunk plus
     # WfmRcv's 192 history samples, 193 taps, decimate by 8, bf16x3 (the
@@ -158,10 +244,13 @@ def check_kernels(torch, cf, fir, firdes):
     xm = torch.from_numpy(rng.randn(1, MAIN_CHUNK + len(taps193) - 1)
                           .astype(np.float32)).to(dev)
     t193 = cf._tapsets(taps193, dev)
+    nout = MAIN_CHUNK // AUDIO_DECIM
     case("fir_decim 1x65536 K193 d8", "fir_tile_fwd", "bf16x3",
          lambda: cf.fir_decim(xm, t193, AUDIO_DECIM, precision="bf16x3"),
-         lambda: cf.fir_tile_ref(xm, t193, AUDIO_DECIM, 0,
-                                 MAIN_CHUNK // AUDIO_DECIM, "bf16x3"))
+         lambda: cf.fir_tile_ref(xm, t193, AUDIO_DECIM, 0, nout, "bf16x3"),
+         flop=2 * len(taps193) * nout,
+         nbytes=4 * (xm.numel() + len(taps193) + nout),
+         library=conv1d(xm, t193[0], AUDIO_DECIM), graphed=True)
 
     # fir_decim at the WBFM bank shape (benchmarks/wfm_bench.py: 64 ch x
     # 2^18 samples at 256 kS/s, 155-tap decimate-by-8 audio FIR)
@@ -169,12 +258,16 @@ def check_kernels(torch, cf, fir, firdes):
     k = len(taps155)
     x = torch.from_numpy(rng.randn(64, (1 << 18) + k - 1).astype(np.float32)).to(dev)
     t155 = cf._tapsets(taps155, dev)
+    nout = (1 << 18) // AUDIO_DECIM
+    x16 = x.to(torch.bfloat16)
     for prec in ("bf16x3", "f32", "bf16"):
         case("fir_decim 64x2^18 K155 d8", "fir_tile_fwd", prec,
              lambda: cf.fir_decim(x, t155, AUDIO_DECIM, precision=prec),
-             lambda: cf.fir_tile_ref(x, t155, AUDIO_DECIM, 0,
-                                     (1 << 18) // AUDIO_DECIM, prec))
-    del x
+             lambda: cf.fir_tile_ref(x, t155, AUDIO_DECIM, 0, nout, prec),
+             flop=2 * k * 64 * nout, nbytes=4 * (x.numel() + k + 64 * nout),
+             library=conv1d(x16 if prec == "bf16" else x, t155[0],
+                            AUDIO_DECIM), graphed=True)
+    del x, x16
 
     # complex streams at a small shape, against the plain complex FIR
     k, d = 200, 4
@@ -182,9 +275,11 @@ def check_kernels(torch, cf, fir, firdes):
                            + 1j * rng.randn(4, 4096 * d + k - 1)
                            ).astype(np.complex64)).to(dev)
     tr = torch.from_numpy((rng.randn(k) / k).astype(np.float32)).to(dev)
+    # (two real planes a launch; the complex cases have no single library call)
     case("fir_decim_c 4x16k K200 d4", "fir_tile_fwd", "f32",
          lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
-         lambda: fir.fir_filter(xc, tr, d, "f32"))
+         lambda: fir.fir_filter(xc, tr, d, "f32"),
+         flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096)
     k, d = 96, 2
     xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
                            + 1j * rng.randn(4, 4096 * d + k - 1)
@@ -193,7 +288,8 @@ def check_kernels(torch, cf, fir, firdes):
                            ).astype(np.complex64)).to(dev)
     case("fir_decim_cc 4x8k K96 d2", "fir_tile_fwd", "bf16x3",
          lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
-         lambda: fir.fir_filter(xc, tc, d, "bf16x3"))
+         lambda: fir.fir_filter(xc, tc, d, "bf16x3"),
+         flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096)
     del xc
 
     # the headline workload (bench.py): 16 pipes x 2^20 samples, 16 stages
@@ -204,27 +300,65 @@ def check_kernels(torch, cf, fir, firdes):
                           .astype(np.float32)).to(dev)
     t256 = cf._tapsets(taps, dev)[0]
     tcomp = cf._tapsets(comp, dev)
-    headline = {"x": xb, "taps": t256}
-    for prec in ("f32", "bf16x3"):
+    headline = {"x": xb, "taps": t256, "comp": tcomp}
+    n, kc = 1 << 20, len(comp)
+    io_bytes = 4 * 2 * xb.numel()
+    for prec in ("f32", "bf16x3", "bf16"):
         headline[prec] = case(
-            "fir_cascade 16x2^20 S16 K256", "fir_cascade_fwd", prec,
+            "fir_cascade 16x2^20 S16 K256",
+            "fir_cascade_fwd" if prec == "f32" else "fir_cascade_mma_fwd", prec,
             lambda: cf.fir_cascade(xb, t256, 16, precision=prec),
-            lambda: cf.fir_cascade_ref(xb, t256, 16, prec), reps=3)
-    case("fir_cascade 16x2^20 K4097", "fir_tile_fwd", "bf16x3",
-         lambda: cf.fir_cascade(xb, tcomp, 1, precision="bf16x3"),
-         lambda: cf.fir_tile_ref(xb, tcomp, 1, len(comp) - 1, 1 << 20,
-                                 "bf16x3"), reps=3, twin_reps=2)
+            lambda: cf.fir_cascade_ref(xb, t256, 16, prec),
+            flop=2 * 256 * 16 * xb.numel(), nbytes=io_bytes + 4 * 256, reps=3,
+            fma=None if prec == "f32" else
+            (lambda: cf._launch_cascade(xb, t256, 16, prec, _fma=True)))
+    # the composed filter has zero history: the library call gets the stream
+    # behind its K-1 zeros, padded outside the timed call
+    xpad = torch.nn.functional.pad(xb, (kc - 1, 0))
+    case("fir_cascade 16x2^20 K4097", "fir_tile_fwd", "f32",
+         lambda: cf.fir_cascade(xb, tcomp, 1, precision="f32"),
+         lambda: cf.fir_tile_ref(xb, tcomp, 1, kc - 1, n, "f32"),
+         flop=2 * kc * xb.numel(), nbytes=io_bytes + 4 * kc, reps=3,
+         twin_reps=2, library=conv1d(xpad, tcomp[0], 1), lib_reps=2)
+    headline["comp bf16x3"] = case(
+        "fir_cascade 16x2^20 K4097", "fir_toeplitz_fwd", "bf16x3",
+        lambda: cf.fir_cascade(xb, tcomp, 1, precision="bf16x3"),
+        lambda: cf.fir_tile_ref(xb, tcomp, 1, kc - 1, n, "bf16x3"),
+        flop=2 * kc * xb.numel(), nbytes=io_bytes + 4 * kc, reps=3,
+        twin_reps=2, library=conv1d(xpad, tcomp[0], 1), lib_reps=2,
+        fma=lambda: cf._launch_tile(xb, tcomp, 1, kc - 1, n, "bf16x3",
+                                    _fma=True))
     xb16 = xb.to(torch.bfloat16)
-    y16 = case("fir_cascade 16x2^20 K4097 bf16in", "fir_tile_fwd", "bf16",
-               lambda: cf.fir_cascade(xb16, tcomp, 1, precision="bf16"),
-               lambda: cf.fir_tile_ref(xb16, tcomp, 1, len(comp) - 1,
-                                       1 << 20, "bf16"), reps=3, twin_reps=2)
+    headline["x16"] = xb16
+    y16 = headline["comp bf16in"] = case(
+        "fir_cascade 16x2^20 K4097 bf16in", "fir_toeplitz_fwd", "bf16",
+        lambda: cf.fir_cascade(xb16, tcomp, 1, precision="bf16"),
+        lambda: cf.fir_tile_ref(xb16, tcomp, 1, kc - 1, n, "bf16"),
+        flop=2 * kc * xb.numel(), nbytes=6 * xb.numel() + 4 * kc, reps=3,
+        twin_reps=2,
+        library=conv1d(xpad.to(torch.bfloat16), tcomp[0], 1), lib_reps=2,
+        fma=lambda: cf._launch_tile(xb16, tcomp, 1, kc - 1, n, "bf16",
+                                    _fma=True))
+    del xpad
     y32 = cf.fir_cascade(xb, tcomp, 1, precision="bf16")
     same = torch.equal(y16, y32)
     print(f"bf16-resident input bit-identical to f32 input at bf16: {same}")
     if not same:
         fail("bf16-resident output differs from the f32-input bf16 output")
     del xb16, y16, y32
+
+    # short filters at decimation 1: the two routes side by side at the
+    # filter lengths around cuda_fir._TZ_MIN_TAPS (timed only)
+    for kk in (32, 64, 128):
+        tk = cf._tapsets(np.random.RandomState(kk).randn(kk) / kk, dev)
+        for prec in ("bf16", "bf16x3"):
+            tz, fma_ms = in_turns(
+                lambda: cf._launch_toeplitz(xb, tk, kk - 1, n, prec),
+                lambda: cf._launch_tile(xb, tk, 1, kk - 1, n, prec, _fma=True),
+                5, 5)
+            print(f"routes 16x2^20 K{kk} {prec}: tensor_ms={tz:.4f} "
+                  f"fma_ms={fma_ms:.4f} (K >= {cf._TZ_MIN_TAPS} takes the "
+                  f"tensor-core route)", flush=True)
 
     # bench.py's chain-SNR gate against float64, on 2^15 samples
     xs = np.random.RandomState(7).randn(1, 1 << 15).astype(np.float32)
@@ -303,7 +437,14 @@ def run_main_path(torch, cf, headline):
         dt = time.perf_counter() - t0
         audio[kind] = y.cpu().numpy()
         rate[kind] = MAIN_SAMPLES / dt / 1e6
-    yb = cf.fir_cascade(headline["x"], headline["taps"], 16, precision="f32")
+    x, x16 = headline["x"], headline["x16"]
+    yb = {"f32": cf.fir_cascade(x, headline["taps"], 16, precision="f32"),
+          "bf16x3": cf.fir_cascade(x, headline["taps"], 16,
+                                   precision="bf16x3"),
+          "comp bf16x3": cf.fir_cascade(x, headline["comp"], 1,
+                                        precision="bf16x3"),
+          "comp bf16in": cf.fir_cascade(x16, headline["comp"], 1,
+                                        precision="bf16")}
     torch.cuda.synchronize()
     counts = dict(cf.launches)
 
@@ -334,8 +475,10 @@ def run_main_path(torch, cf, headline):
           f"(tol {TOL['bf16x3']:g}, the kernel's bf16x3 default)")
     if not diff <= TOL["bf16x3"]:
         fail("kernel WBFM chain disagrees with the plain chain")
-    if not torch.equal(yb, headline["f32"]):
-        fail("headline workload output differs from the checked cascade output")
+    for key, got in yb.items():
+        if not torch.equal(got, headline[key]):
+            fail(f"headline workload output ({key}) differs from the checked "
+                 f"output of phase 3")
     for name in cf.launches:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -565,19 +708,23 @@ def main() -> int:
     run_dmr_stream(torch)
     print(f"DMR path launches: {dict(cf.launches)}")
 
-    # phase 6: report
-    pick = {"fir_tile_fwd": ("fir_decim 64x2^18 K155 d8", "bf16x3"),
-            "fir_cascade_fwd": ("fir_cascade 16x2^20 S16 K256", "f32")}
+    # phase 6: report, for each kernel the case the main path launches most
+    pick = {"fir_tile_fwd": ("fir_decim 1x65536 K193 d8", "bf16x3"),
+            "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
+            "fir_cascade_fwd": ("fir_cascade 16x2^20 S16 K256", "f32"),
+            "fir_cascade_mma_fwd": ("fir_cascade 16x2^20 S16 K256", "bf16x3")}
     kernels = []
     for name, (case_name, prec) in pick.items():
         row = next(r for r in rows if r["case"] == case_name
-                   and r["precision"] == prec)
+                   and r["precision"] == prec and r["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "grtpu_torch/csrc/fir_tile.cu",
             "replaces": "grtpu/ops/pallas_fir.py:70",
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"]})
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
         print(f"reported for {name}: {case_name} {prec}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

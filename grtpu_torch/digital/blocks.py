@@ -31,7 +31,8 @@ class CostasLoop(Block):
         self.gains = gains
 
     def init_state(self):
-        return loops.costas_init_state()
+        # host-made, like every block's state: the executor moves it
+        return loops.costas_init_state("cpu")
 
     def apply(self, state, x):
         y, st = loops.costas_loop(x, state, self.loop_bw, self.order,
@@ -168,7 +169,7 @@ class _ClockRecoveryMMBase(Block):
 
     def init_state(self):
         return loops.mm_init_state(self.omega, self.mu0,
-                                   complex_mode=self._complex)
+                                   complex_mode=self._complex, device="cpu")
 
     def apply(self, state, x):
         fn = (loops.clock_recovery_mm_cc if self._complex

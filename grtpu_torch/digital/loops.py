@@ -41,6 +41,7 @@ import torch
 
 from grtpu_torch.ops import dsp
 from grtpu_torch.ops.mmse_interp import NSTEPS, NTAPS, bank_on, interpolate_point
+from grtpu_torch.utils.device import resolve
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -123,7 +124,8 @@ def costas_loop(x: torch.Tensor, state, loop_bw: float, order: int,
     return y, (phase, freq)
 
 
-def costas_init_state(device="cpu"):
+def costas_init_state(device=None):
+    device = resolve(device)
     return (_f32(0.0, device), _f32(0.0, device))
 
 
@@ -136,7 +138,8 @@ class MMState(NamedTuple):
 
 
 def mm_init_state(omega: float, mu: float = 0.5, complex_mode=False,
-                  device="cpu") -> MMState:
+                  device=None) -> MMState:
+    device = resolve(device)
     dt = torch.complex64 if complex_mode else torch.float32
     return MMState(_f32(mu, device), _f32(omega, device), _f32(0.0, device),
                    torch.zeros((), dtype=dt, device=device))
@@ -265,7 +268,8 @@ class MMWinState(NamedTuple):
 
 
 def mm_windowed_init_state(omega: float, mu: float = 0.5,
-                           complex_mode=False, device="cpu") -> MMWinState:
+                           complex_mode=False, device=None) -> MMWinState:
+    device = resolve(device)
     dt = torch.complex64 if complex_mode else torch.float32
     return MMWinState(_f32(mu, device), _f32(omega, device),
                       _f32(0.0, device), torch.zeros((), dtype=dt,

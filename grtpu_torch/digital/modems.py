@@ -12,7 +12,8 @@ layer:
     frequency pulse -> FM; demod: quadrature_demod -> matched filter ->
     M&M timing -> 4-level slicer.
 
-Each modem runs on an explicit ``device``: inputs (numpy or tensors) move
+Each modem runs on its ``device`` (the card unless the caller names
+another, e.g. ``device="cpu"``): inputs (numpy or tensors) move
 there at entry, ``modulate`` returns a complex64 tensor on it, and the
 demodulators return host numpy decisions, as grtpu's do.  The matched
 filters are float32 Toeplitz matmuls (``ops.fir``), which refuse to run in
@@ -29,6 +30,7 @@ from grtpu_torch.digital.constellation import fsk4_symbols, psk_constellation
 from grtpu_torch.ops import dsp
 from grtpu_torch.ops.fir import batch_fir_filter, fir_filter, interp_fir_filter
 from grtpu_torch.utils import firdes
+from grtpu_torch.utils.device import resolve
 
 
 def _bits_msb(data: np.ndarray, k: int = 1) -> np.ndarray:
@@ -102,10 +104,10 @@ class GmskModem(_Modem):
     def __init__(self, samples_per_symbol: int = 2, bt: float = 0.35,
                  gain_mu: float = 0.175, mu: float = 0.5,
                  omega_relative_limit: float = 0.005,
-                 chunked: bool = False, device="cpu"):
+                 chunked: bool = False, device=None):
         # chunked=True: chunk-batched M&M (clock_recovery_mm_ff_chunked)
         self.chunked = bool(chunked)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         sps = samples_per_symbol
         self.sps = sps
         self.bt = bt
@@ -157,9 +159,9 @@ class PskModem(_Modem):
     def __init__(self, m: int = 2, samples_per_symbol: int = 4,
                  excess_bw: float = 0.35, costas_bw: float = 0.062,
                  gain_mu: float = 0.175, differential: bool = True,
-                 chunked: bool = False, device="cpu"):
+                 chunked: bool = False, device=None):
         self.chunked = bool(chunked)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.m = m
         self.k = int(np.log2(m))
         self.sps = samples_per_symbol
@@ -258,9 +260,9 @@ class Fsk4Modem(_Modem):
 
     def __init__(self, samples_per_symbol: int = 10,
                  symbol_rate: float = 4800.0, deviation: float = 1944.0,
-                 gain_mu: float = 0.05, chunked: bool = False, device="cpu"):
+                 gain_mu: float = 0.05, chunked: bool = False, device=None):
         self.chunked = bool(chunked)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.sps = samples_per_symbol
         self.fs = samples_per_symbol * symbol_rate
         self.deviation = deviation

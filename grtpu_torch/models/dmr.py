@@ -93,7 +93,7 @@ class DmrReceiver:
     """Complete DMR narrowband receive chain: 4FSK demod on ``device`` +
     burst layer."""
 
-    def __init__(self, samples_per_symbol: int = 10, device="cpu"):
+    def __init__(self, samples_per_symbol: int = 10, device=None):
         self.modem = Fsk4Modem(samples_per_symbol=samples_per_symbol,
                                device=device)
 
@@ -113,7 +113,7 @@ class DmrTransmitter:
     ``device``.  The idle dibits around the burst come from a seeded
     RandomState(7), as in grtpu."""
 
-    def __init__(self, samples_per_symbol: int = 10, device="cpu"):
+    def __init__(self, samples_per_symbol: int = 10, device=None):
         self.modem = Fsk4Modem(samples_per_symbol=samples_per_symbol,
                                device=device)
 

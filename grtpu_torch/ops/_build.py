@@ -71,6 +71,15 @@ def library() -> ctypes.CDLL:
     lib.fir_tile_fwd.restype = i
     lib.fir_cascade_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.fir_cascade_fwd.restype = i
+    lib.fir_cascade_mma_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.fir_cascade_mma_fwd.restype = i
+    lib.fir_toeplitz_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i,
+                                     i, p]
+    lib.fir_toeplitz_fwd.restype = i
+    lib.fir_toeplitz_smem.argtypes = [i, i]
+    lib.fir_toeplitz_smem.restype = ctypes.c_size_t
+    lib.fir_toeplitz_rows_per_pass.argtypes = []
+    lib.fir_toeplitz_rows_per_pass.restype = i
     lib.fir_tile_smem.argtypes = [i, i, i, i]
     lib.fir_tile_smem.restype = ctypes.c_size_t
     lib.fir_cascade_smem.argtypes = [i, i, i, i]

@@ -3,15 +3,20 @@
 Port of ``grtpu.ops.pallas_fir``: the same public functions and signatures
 minus ``interpret`` — ``fir_cascade``, ``fir_long``, ``batch_fir_long``,
 ``fir_decim``, ``fir_decim_c``, ``fir_decim_cc`` and ``_phase_split_taps`` —
-over two CUDA C++ kernels in ``grtpu_torch/csrc/fir_tile.cu``:
+over the CUDA C++ kernels in ``grtpu_torch/csrc/fir_tile.cu``:
 
-* ``fir_tile_fwd``    — one FIR per batch row (row i uses tap set i % G),
-  with a decimation stride and an optional zero lead, f32 or bf16 input.
-  It serves every single-stage path: fir_long, fir_decim (decimated
-  outputs computed directly, no phase split), the complex plane variants
-  and fir_cascade with one stage.
-* ``fir_cascade_fwd`` — S chained FIRs with the same taps from zero
-  history, the stages resident in shared memory.
+* ``fir_tile_fwd``     — one FIR per batch row (row i uses tap set i % G),
+  with a decimation stride and an optional zero lead, f32 or bf16 input,
+  float32 FMAs on the CUDA cores.  It serves every single-stage path:
+  fir_long, fir_decim (decimated outputs computed directly, no phase
+  split), the complex plane variants and fir_cascade with one stage.
+* ``fir_toeplitz_fwd`` — the same single-stage FIR at decimation 1 in bf16
+  and bf16x3, on the tensor cores: rows of the stream against the Toeplitz
+  matrix of the taps.  ``_launch_tile`` sends those calls here.
+* ``fir_cascade_fwd``  — S chained FIRs with the same taps from zero
+  history, the stages resident in shared memory, float32 FMAs (f32).
+* ``fir_cascade_mma_fwd`` — the same cascade in bf16 and bf16x3, each stage
+  the tensor-core product of ``fir_toeplitz_fwd``.
 
 Every public function holds the contract ``y[i] = sum_k taps[k] *
 x[i*d + K-1-k]`` (x carrying K-1 samples of history, or zero history for
@@ -20,9 +25,11 @@ fir_cascade); the TPU kernel's halo and orientation bookkeeping
 
 Dispatch is by the tensor's device: a CPU tensor runs the kernel's plain
 PyTorch twin (:func:`fir_tile_ref`, :func:`fir_cascade_ref`); a CUDA tensor
-launches the kernel, building it at first use, or raises.  ``launches``
-counts the kernel launches, one per launch, for callers that must show a
-path went through the kernels.
+launches the kernel, building it at first use, or raises.
+:func:`fir_toeplitz_ref` is the plain form of the tensor-core route's own
+arithmetic and layout.  ``launches`` counts the kernel launches, one per
+launch under the name of the entry that was called, for callers that must
+show a path went through the kernels.
 
 ``tile_rows`` is accepted for grtpu signature compatibility; the Hopper
 kernels size their tiles from shared memory and the batch instead.
@@ -30,15 +37,19 @@ kernels size their tiles from shared memory and the batch instead.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from grtpu_torch.ops.fir import PRECISIONS, fir_filter, pad_last
+from grtpu_torch.ops.fir import (PRECISIONS, fir_filter, pad_last,
+                                 real_matmul)
 
 LANE = 128
 
-# Kernel launch counts, by kernel name.
-launches = {"fir_tile_fwd": 0, "fir_cascade_fwd": 0}
+# Kernel launch counts, by the name of the C entry that was called.
+launches = {"fir_tile_fwd": 0, "fir_toeplitz_fwd": 0, "fir_cascade_fwd": 0,
+            "fir_cascade_mma_fwd": 0}
 
 _PRECISION_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
 _THREADS = 256
@@ -46,6 +57,20 @@ _KBLK = 2048             # taps staged in shared memory per pass
 _MAX_TILE_SPAN = 4096    # input samples a fir_tile_fwd window spans, at most
 _SMEM_OPTIN = 232448     # bytes of shared memory a Hopper block may opt into
 _CASCADE_TILES = (8192, 4096, 2048, 1024, 512, 256)  # largest that fits wins
+_TZ_PASS_ROWS = 128      # output rows of 128 a tensor-core block computes per pass
+_H100_SMS = 132          # blocks are sized for this many SMs off the card
+# Below this many taps the tensor-core route stops winning: its work grows as
+# (K + 127) / K.  16 x 2^20 on an H100 (700 W), tensor / FMA ms: K 32 bf16
+# 0.082 / 0.076, bf16x3 0.116 / 0.135; K 64 bf16 0.078 / 0.099, bf16x3
+# 0.120 / 0.206; K 128 bf16 0.078 / 0.148, bf16x3 0.117 / 0.351
+# (chip_smoke.py prints these as "routes ...").
+_TZ_MIN_TAPS = 64
+# Above these many taps the tensor-core route's tap words and its two-stage
+# ring of 128 + ceil((K + 127) / 128) - 1 stream rows no longer fit a block's
+# shared memory (_toeplitz_smem), and the call takes the FMA route, about 15x
+# slower at these lengths; the cascade's stages have the same limit, and
+# need nstages * (K - 1) < 128 * 127 besides (_cascade_mma_tile).
+_TZ_MAX_TAPS = {"bf16": 20481, "bf16x3": 6145}
 
 
 def _check_precision(precision: str):
@@ -91,19 +116,128 @@ def fir_cascade_ref(x: torch.Tensor, taps: torch.Tensor, nstages: int,
     return y
 
 
+# ------------------------------------------- the tensor-core route, plain
+def _toeplitz_plan(b: int, nout: int, k: int, sms: int = _H100_SMS):
+    """Layout of the tensor-core route for ``b`` rows of ``nout`` outputs and
+    ``k`` taps: the stream is read as rows of 128 samples behind ``lead``
+    zeros, an output row needs ``nh`` consecutive stream rows, and the output
+    rows of a batch row are cut into ``nseg`` segments of ``seg_rows`` (a
+    multiple of the rows a block computes per pass), about two blocks an SM.
+    Returns (nh, seg_rows, nseg, lrows); ``lrows`` is the number of stream
+    rows staged per batch row, zero-filled past the data."""
+    nh = -(-(k + LANE - 1) // LANE)
+    rows = max(1, -(-nout // LANE))
+    passes = -(-rows // _TZ_PASS_ROWS)
+    segs = max(1, min(2 * sms // max(b, 1), passes))
+    seg_rows = -(-passes // segs) * _TZ_PASS_ROWS
+    nseg = -(-rows // seg_rows)
+    return nh, seg_rows, nseg, nseg * seg_rows + nh - 1
+
+
+def toeplitz_taps(taps: torch.Tensor) -> torch.Tensor:
+    """The Toeplitz matrix of one tap set for the tensor-core route:
+    ``T[j, c] = taps[K-1 - (j - c)]`` where that index is a tap, else 0,
+    shape (nh*128, 128) with nh = ceil((K + 127) / 128)."""
+    k = taps.shape[-1]
+    nh = -(-(k + LANE - 1) // LANE)
+    hs = taps.new_zeros((nh + 1) * LANE)      # hs[i] = reversed taps[i - 128]
+    hs[LANE:LANE + k] = taps.flip(-1)
+    j = torch.arange(nh * LANE, device=taps.device)[:, None]
+    c = torch.arange(LANE, device=taps.device)[None, :]
+    return hs[LANE + j - c]
+
+
+def fir_toeplitz_ref(x: torch.Tensor, tapsets: torch.Tensor, lead: int,
+                     nout: int, precision: str) -> torch.Tensor:
+    """Plain PyTorch form of the tensor-core route's own arithmetic (same
+    contract as :func:`fir_tile_ref` at decim 1): the stream behind ``lead``
+    zeros is staged as rows of 128 samples, and output row r is
+    ``sum_jb rows[r + jb] @ T[jb*128:(jb+1)*128]`` over the Toeplitz matrix
+    of the taps, operands rounded to bf16 (bf16x3: hi and lo words, products
+    hi*hi + hi*lo + lo*hi) and summed in float32."""
+    b, total = x.shape
+    g, k = tapsets.shape
+    nh, seg_rows, nseg, lrows = _toeplitz_plan(b, nout, k)
+    xp = x.new_zeros((b, lrows * LANE), dtype=torch.float32)
+    keep = min(total, lrows * LANE - lead)
+    xp[:, lead:lead + keep] = x[:, :keep]
+    rows = xp.view(b, lrows, LANE)
+    r = nseg * seg_rows
+    y = torch.zeros((b, r, LANE), dtype=torch.float32, device=x.device)
+    for j in range(g):
+        t = toeplitz_taps(tapsets[j])
+        for jb in range(nh):
+            y[j::g] += real_matmul(rows[j::g, jb:jb + r],
+                                   t[jb * LANE:(jb + 1) * LANE], precision)
+    return y.reshape(b, r * LANE)[:, :nout]
+
+
 # --------------------------------------------------------------- launches
+def _toeplitz_smem(precision: str, k: int) -> int:
+    """Bytes of shared memory one block of the tensor-core routes uses for
+    ``k`` taps (fir_tile.cu's ``toeplitz_smem``): the tap words of each plane
+    in two parity copies, rounded up to 1024, then two stages of swizzled
+    rows, 256 bytes a row and plane."""
+    npl = 2 if precision == "bf16x3" else 1
+    nh = -(-(k + LANE - 1) // LANE)
+    tap_words = LANE // 2 * (nh + 1) + 16
+    tap_bytes = -(-npl * 2 * 4 * tap_words // 1024) * 1024
+    rows = -(-(_TZ_PASS_ROWS + nh - 1) // 8) * 8
+    return tap_bytes + 2 * npl * 2 * rows * LANE
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_tile(x, tapsets, decim, lead, nout, precision):
+def _raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as the integer a kernel launch
+    takes.  A small chunk's launch is bound by the host, so the wrappers
+    keep off the slower ``torch.cuda.current_stream(...).cuda_stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch_toeplitz(x, tapsets, lead, nout, precision):
     from grtpu_torch.ops._build import library
 
     lib = library()
     b, total = x.shape
     g, k = tapsets.shape
-    opt = lib.fir_tile_outputs_per_thread()
+    nh, seg_rows, nseg, lrows = _toeplitz_plan(b, nout, k, _sm_count(x.device))
+    assert seg_rows % lib.fir_toeplitz_rows_per_pass() == 0
+    planes = 2 if precision == "bf16x3" else 1
+    scratch = torch.empty((planes, b, lrows * LANE), dtype=torch.bfloat16,
+                          device=x.device)
+    y = torch.empty((b, nout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = _raw_stream(x.device)
+        err = lib.fir_toeplitz_fwd(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), tapsets.data_ptr(),
+            scratch.data_ptr(), y.data_ptr(), b, total, g, k, lead, nout,
+            _PRECISION_CODE[precision], seg_rows, nseg, lrows, stream)
+    if err:
+        raise RuntimeError("fir_toeplitz_fwd launch failed: "
+                           + lib.fir_error_string(err).decode())
+    launches["fir_toeplitz_fwd"] += 1
+    return y
+
+
+def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False):
+    """Launch the single-stage FIR: the tensor-core route for bf16 and bf16x3
+    at decimation 1 and ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS`` taps (unless
+    ``_fma`` forces the FMA route, for timing the two side by side), else the
+    FMA route."""
+    from grtpu_torch.ops._build import library
+
+    lib = library()
+    b, total = x.shape
+    g, k = tapsets.shape
     code = _PRECISION_CODE[precision]
+    if (decim == 1 and precision != "f32" and not _fma and nout and b
+            and _TZ_MIN_TAPS <= k <= _TZ_MAX_TAPS[precision]):
+        return _launch_toeplitz(x, tapsets, lead, nout, precision)
+    opt = lib.fir_tile_outputs_per_thread()
     # bound the window a tile spans, then shrink tiles until the grid fills
     # the card twice over (or the tiles reach one warp)
     threads = _THREADS
@@ -120,7 +254,7 @@ def _launch_tile(x, tapsets, decim, lead, nout, precision):
     if nout == 0 or b == 0:
         return y
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _raw_stream(x.device)
         err = lib.fir_tile_fwd(
             x.data_ptr(), int(x.dtype == torch.bfloat16), tapsets.data_ptr(),
             y.data_ptr(), b, total, g, k, decim, lead, nout, code, threads,
@@ -132,32 +266,53 @@ def _launch_tile(x, tapsets, decim, lead, nout, precision):
     return y
 
 
-def _launch_cascade(x, taps, nstages, precision):
+def _cascade_mma_tile(n: int, k: int, nstages: int) -> int:
+    """Outputs per block of the cascade's tensor-core route: the tile and its
+    ``nstages*(k-1)`` samples of lookback fill the 128 rows of 128 samples
+    that one stage's product spans.  0 when the lookback leaves no room for
+    a tile."""
+    tile = (_TZ_PASS_ROWS * LANE - nstages * (k - 1)) // LANE * LANE
+    return max(0, min(tile, -(-n // LANE) * LANE))
+
+
+def _launch_cascade(x, taps, nstages, precision, _fma=False):
+    """Launch the cascade: the tensor-core route for bf16 and bf16x3 (unless
+    ``_fma`` forces the FMA route, for timing the two side by side, or the
+    taps or the lookback do not fit), else the FMA route."""
     from grtpu_torch.ops._build import library
 
     lib = library()
     b, n = x.shape
     k = taps.shape[-1]
     code = _PRECISION_CODE[precision]
-    # the largest tile whose S*(K-1) lookback fits shared memory: the
-    # lookback is recomputed by every tile, so longer tiles waste less
-    for tile in _CASCADE_TILES:
-        if lib.fir_cascade_smem(code, k, nstages, tile) <= _SMEM_OPTIN:
-            break
-    else:
-        raise ValueError(f"{nstages} stages of {k} taps do not fit in shared "
-                         f"memory")
-    tile = min(tile, -(-n // 256) * 256)
+    tile = 0 if precision == "f32" or _fma else _cascade_mma_tile(n, k, nstages)
+    mma = tile > 0 and k <= _TZ_MAX_TAPS[precision]
+    if not mma:
+        # the largest tile whose S*(K-1) lookback fits shared memory: the
+        # lookback is recomputed by every tile, so longer tiles waste less
+        for tile in _CASCADE_TILES:
+            if lib.fir_cascade_smem(code, k, nstages, tile) <= _SMEM_OPTIN:
+                break
+        else:
+            raise ValueError(f"{nstages} stages of {k} taps do not fit in "
+                             f"shared memory")
+        tile = min(tile, -(-n // 256) * 256)
     y = torch.empty((b, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fir_cascade_fwd(x.data_ptr(), taps.data_ptr(), y.data_ptr(),
-                                  b, n, k, nstages, tile, code, _THREADS,
-                                  stream)
+        stream = _raw_stream(x.device)
+        if mma:
+            err = lib.fir_cascade_mma_fwd(
+                x.data_ptr(), taps.data_ptr(), y.data_ptr(), b, n, k, nstages,
+                tile, code, stream)
+        else:
+            err = lib.fir_cascade_fwd(
+                x.data_ptr(), taps.data_ptr(), y.data_ptr(), b, n, k, nstages,
+                tile, code, _THREADS, stream)
+    name = "fir_cascade_mma_fwd" if mma else "fir_cascade_fwd"
     if err:
-        raise RuntimeError("fir_cascade_fwd launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            + lib.fir_error_string(err).decode())
-    launches["fir_cascade_fwd"] += 1
+    launches[name] += 1
     return y
 
 

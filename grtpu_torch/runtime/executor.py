@@ -44,6 +44,7 @@ import torch
 from grtpu_torch.runtime.block import Block
 from grtpu_torch.runtime.graph import Edge, FlatGraph, Graph, Pad
 from grtpu_torch.runtime.tags import Tag
+from grtpu_torch.utils.device import resolve
 
 _PORT_ITEMS = {
     "stream tags": 2,
@@ -146,7 +147,8 @@ class StreamExecutor:
       vr_chunks: optional per-variable-rate-block emission size overrides
         ``{block: n_emit}`` (default: the expected per-step production,
         snapped to the downstream segment's decimation multiple).
-      device: the torch device that holds the state and runs every block.
+      device: the torch device that holds the state and runs every block;
+        the card (``cuda``) when not given.
         Host inputs are moved there at ``run``/``step`` entry.
       debug_taps, fuse_firs: grtpu options not ported yet (they raise).
     """
@@ -157,7 +159,7 @@ class StreamExecutor:
         chunk_size: Optional[int] = 4096,
         root_chunks: Optional[Dict[Any, int]] = None,
         vr_chunks: Optional[Dict[Any, int]] = None,
-        device="cpu",
+        device=None,
         debug_taps: bool = False,
         fuse_firs: bool = False,
     ):
@@ -170,7 +172,7 @@ class StreamExecutor:
         for b in self.order:
             if b.emits_tags:
                 raise _not_ported("stream tags")
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._ups = {b.uid: self.flat.upstream_of(b) for b in self.order}
         self._downs = {b.uid: self.flat.downstream_of(b) for b in self.order}
         self._compute_topology()

@@ -36,7 +36,7 @@ def dev():
 
 
 def stream(nsym, seed, cfo_hz=0.0):
-    modem = Fsk4Modem(samples_per_symbol=SPS)
+    modem = Fsk4Modem(samples_per_symbol=SPS, device="cpu")
     dibits = np.random.RandomState(seed).randint(0, 4, nsym)
     iq = modem.modulate(dibits).numpy()
     iq = iq * np.exp(1j * 2 * np.pi * cfo_hz / 48000 * np.arange(len(iq)))
@@ -46,7 +46,7 @@ def stream(nsym, seed, cfo_hz=0.0):
 def test_burst_bank_matches_cpu(dev):
     x = np.stack([stream(1000, c, cfo_hz=10.0 * c - 40) for c in range(8)])
     gpu = Fsk4Modem(samples_per_symbol=SPS, device=dev)
-    cpu = Fsk4Modem(samples_per_symbol=SPS)
+    cpu = Fsk4Modem(samples_per_symbol=SPS, device="cpu")
     lg = gpu._burst_bank_fn(torch.from_numpy(x).to(dev))
     lc = cpu._burst_bank_fn(torch.from_numpy(x))
     assert (lg.cpu() - lc).abs().max().item() < 1e-4
@@ -68,9 +68,9 @@ def _graph(modem):
 
 def test_vr_graph_matches_cpu(dev):
     x = stream(1200, 5)
-    modem = Fsk4Modem(samples_per_symbol=SPS)
+    modem = Fsk4Modem(samples_per_symbol=SPS, device="cpu")
     got = StreamExecutor(_graph(modem), chunk_size=4096, device=dev).run(x)
-    ref = StreamExecutor(_graph(modem), chunk_size=4096).run(x)
+    ref = StreamExecutor(_graph(modem), chunk_size=4096, device="cpu").run(x)
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
 
@@ -78,5 +78,6 @@ def test_vr_graph_matches_cpu(dev):
 def test_chunked_demod_matches_cpu(dev):
     x = stream(1500, 6)
     got = Fsk4Modem(samples_per_symbol=SPS, chunked=True, device=dev).demodulate(x)
-    ref = Fsk4Modem(samples_per_symbol=SPS, chunked=True).demodulate(x)
+    ref = Fsk4Modem(samples_per_symbol=SPS, chunked=True,
+                    device="cpu").demodulate(x)
     np.testing.assert_array_equal(got, ref)

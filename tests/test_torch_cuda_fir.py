@@ -254,6 +254,109 @@ class TestTileTwin:
             cf.fir_decim(x, np.ones(5, np.float32), 4)
 
 
+class TestToeplitzRoute:
+    """The plain form of the tensor-core route (rows of the stream against
+    the Toeplitz matrix of the taps, hi/lo split as the kernel splits) held
+    against the twin and against grtpu's Pallas kernel in interpret mode."""
+
+    @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+    @pytest.mark.parametrize("g", [1, 3])
+    @pytest.mark.parametrize("zero_lead", [True, False])
+    @pytest.mark.parametrize("k", [16, 96, 256, 513])
+    def test_vs_twin(self, k, zero_lead, g, precision):
+        """Ragged shapes: a stream shorter than one 128-sample row and one
+        that is no multiple of it, lead 0 and K-1, row b on tap set b % G."""
+        lead = k - 1 if zero_lead else 0
+        rng = np.random.RandomState(k + 7 * g + lead)
+        ts = T((rng.randn(g, k) / np.sqrt(k)).astype(np.float32))
+        for b, nout in ((g, 77), (2 * g, 128 * 3 + 41)):
+            x = T(rng.randn(b, nout + k - 1 - lead).astype(np.float32))
+            got = cf.fir_toeplitz_ref(x, ts, lead, nout, precision)
+            ref = cf.fir_tile_ref(x, ts, 1, lead, nout, precision)
+            assert got.shape == (b, nout)
+            assert rel(got.numpy(), ref.numpy()) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+    @pytest.mark.parametrize("k", [16, 96, 256, 513])
+    def test_vs_pallas_fir_long(self, k, precision):
+        rng = np.random.RandomState(100 + k)
+        taps = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
+        x = rng.randn(128 * 5 + 9 + k - 1).astype(np.float32)
+        ref = np.asarray(jpf.fir_long(jnp.asarray(x), taps, tile_rows=256,
+                                      interpret=True, precision=precision))
+        got = cf.fir_toeplitz_ref(T(x)[None], T(taps)[None], 0,
+                                  len(x) - (k - 1), precision)[0].numpy()
+        assert rel(got, ref) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+    @pytest.mark.parametrize("k", [16, 96, 256, 513])
+    def test_vs_pallas_cascade_one_stage(self, k, precision):
+        rng = np.random.RandomState(200 + k)
+        taps = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
+        x = rng.randn(2, 1024).astype(np.float32)
+        ref = np.asarray(jpf.fir_cascade(jnp.asarray(x), taps, 1,
+                                         tile_rows=256, interpret=True,
+                                         precision=precision))
+        got = cf.fir_toeplitz_ref(T(x), T(taps)[None], k - 1, 1024,
+                                  precision).numpy()
+        assert rel(got, ref) < TOL[precision]
+
+    def test_bf16_resident_input(self):
+        """A bfloat16 stream gives what the float32 stream gives at bf16."""
+        rng = np.random.RandomState(31)
+        x = T(rng.randn(2, 700).astype(np.float32))
+        ts = T((rng.randn(1, 130) * 0.1).astype(np.float32))
+        y32 = cf.fir_toeplitz_ref(x, ts, 129, 700, "bf16")
+        y16 = cf.fir_toeplitz_ref(x.to(torch.bfloat16), ts, 129, 700, "bf16")
+        assert torch.equal(y32, y16)
+
+    @pytest.mark.parametrize("k", [1, 2, 129, 130, 4097])
+    def test_toeplitz_taps(self, k):
+        """T[j, c] = taps[K-1 - (j - c)], zero where that is no tap."""
+        taps = np.random.RandomState(k).randn(k).astype(np.float32)
+        t = cf.toeplitz_taps(T(taps)).numpy()
+        nh = -(-(k + 127) // 128)
+        assert t.shape == (nh * 128, 128)
+        for j, c in ((0, 0), (k - 1, 0), (k, 0), (127, 127), (k + 126, 127),
+                     (5, 9), (nh * 128 - 1, 127)):
+            m = j - c
+            want = taps[k - 1 - m] if 0 <= m < k else 0.0
+            assert t[j, c] == want, (j, c)
+
+    @pytest.mark.parametrize("b,nout,k", [(16, 1 << 20, 4097), (1, 65536, 193),
+                                          (1, 77, 16), (300, 5000, 256),
+                                          (2, 128 * 129, 513)])
+    def test_plan(self, b, nout, k):
+        """Segments cover every output row, are whole passes, and the staged
+        rows cover the last segment's last read."""
+        nh, seg_rows, nseg, lrows = cf._toeplitz_plan(b, nout, k)
+        rows = -(-nout // 128)
+        assert nh * 128 >= k + 127 > (nh - 1) * 128
+        assert seg_rows % cf._TZ_PASS_ROWS == 0 and seg_rows > 0
+        assert (nseg - 1) * seg_rows < rows <= nseg * seg_rows
+        assert lrows == nseg * seg_rows + nh - 1
+        # about two blocks an SM, never more segments than passes
+        assert nseg <= max(1, 2 * cf._H100_SMS // b)
+
+    @pytest.mark.parametrize("n,k,s,want", [(1 << 20, 256, 16, 12288),
+                                            (384, 64, 2, 384),
+                                            (1 << 20, 4097, 4, 0),
+                                            (128 * 77, 17, 5, 128 * 77)])
+    def test_cascade_tile(self, n, k, s, want):
+        assert cf._cascade_mma_tile(n, k, s) == want
+
+    @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+    def test_longest_filter_on_the_tensor_cores(self, precision):
+        """_TZ_MAX_TAPS is the last filter length whose tap words and ring
+        fit the shared memory a block may opt into; one tap more takes the
+        FMA route.  The headline 4097 taps fit in both modes."""
+        k = cf._TZ_MAX_TAPS[precision]
+        assert cf._toeplitz_smem(precision, k) <= cf._SMEM_OPTIN
+        assert cf._toeplitz_smem(precision, k + 1) > cf._SMEM_OPTIN
+        assert cf._TZ_MIN_TAPS <= 4097 <= k
+        assert cf._TZ_MAX_TAPS == {"bf16": 20481, "bf16x3": 6145}
+
+
 class TestFirFilterKernelImpl:
     """FirFilter(impl='kernel') inside a graph equals grtpu's
     FirFilter(impl='pallas') (interpret mode via monkeypatch, as in
@@ -287,7 +390,8 @@ class TestFirFilterKernelImpl:
             pin = g.add_input(pkg.Port(dtype[0]))
             pout = g.add_output(pkg.Port(dtype[1]))
             g.connect(pin, fir_cls(d, taps, sig, impl=impl), pout)
-            return pkg.StreamExecutor(g, chunk_size=512).run(
+            kw = {"device": "cpu"} if pkg is grtpu_torch else {}
+            return pkg.StreamExecutor(g, chunk_size=512, **kw).run(
                 jnp.asarray(x) if pkg is grtpu else x)
 
         jd = (jnp.complex64 if cplx else jnp.float32,

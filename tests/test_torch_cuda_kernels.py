@@ -8,7 +8,9 @@ it; from the repository root on a GPU machine:
 
 Tolerances on max|kernel - twin| / max|twin|: f32 < 1e-5, bf16x3 < 1e-4,
 bf16 < 3e-2 (bf16 products are exact in float32; the kernel and the twin
-sum in different orders).
+sum in different orders).  In a multi-stage cascade at bf16 each stage
+re-rounds its output, so a last-bit difference in a sum can move a value by
+one bf16 step; 3e-2 covers that.
 """
 
 import numpy as np
@@ -75,6 +77,85 @@ def test_fir_cascade(dev, precision, s, k, n):
     assert rel(got, ref) < TOL[precision]
 
 
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("k,lead,g,b,nout", [
+    (64, 0, 1, 2, 77), (96, 95, 3, 6, 128 * 3 + 41), (256, 255, 3, 3, 20001),
+    (513, 0, 1, 1, 128 * 130 + 5), (1300, 0, 1, 2, 3000),
+    (4097, 4096, 1, 2, 1 << 16), (4097, 0, 2, 4, 128 * 300 + 1)])
+def test_tensor_core_route(dev, precision, k, lead, g, b, nout):
+    """fir_toeplitz_fwd against the twin at ragged shapes: streams shorter
+    than one 128-sample row and no multiple of it, lead 0 and K-1, G tap
+    sets, an odd output count, several segments and passes."""
+    x = randn(dev, b, nout + k - 1 - lead, seed=k)
+    ts = randn(dev, g, k, seed=k + 1) / np.sqrt(k)
+    before = dict(cf.launches)
+    got = cf._tile(x, ts, 1, lead, nout, precision)
+    torch.cuda.synchronize()
+    assert cf.launches["fir_toeplitz_fwd"] == before["fir_toeplitz_fwd"] + 1
+    assert cf.launches["fir_tile_fwd"] == before["fir_tile_fwd"]
+    ref = cf.fir_tile_ref(x, ts, 1, lead, nout, precision)
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) < TOL[precision]
+    plain = cf.fir_toeplitz_ref(x, ts, lead, nout, precision)
+    assert rel(got, plain) < TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+def test_short_filters_keep_the_fma_route(dev, precision):
+    x = randn(dev, 2, 1000 + 15, seed=8)
+    taps = randn(dev, 16, seed=9) / 4
+    before = dict(cf.launches)
+    got = cf.fir_long(x[0], taps, precision=precision)
+    assert cf.launches["fir_toeplitz_fwd"] == before["fir_toeplitz_fwd"]
+    assert cf.launches["fir_tile_fwd"] == before["fir_tile_fwd"] + 1
+    forced = cf._launch_tile(x[:1].contiguous(), taps[None].contiguous(), 1, 0,
+                             1000, precision, _fma=True)[0]
+    assert torch.equal(got, forced)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+def test_filters_too_long_for_the_ring_take_the_fma_route(dev, precision):
+    """The wrapper's shared-memory sizes are the library's, and one tap past
+    _TZ_MAX_TAPS the call is an FMA launch that agrees with the twin."""
+    from grtpu_torch.ops._build import library
+
+    code = cf._PRECISION_CODE[precision]
+    for k in (64, 256, 4097, cf._TZ_MAX_TAPS[precision]):
+        assert library().fir_toeplitz_smem(code, k) == \
+            cf._toeplitz_smem(precision, k)
+    k = cf._TZ_MAX_TAPS[precision]
+    ts = randn(dev, 2, k + 1, seed=11) / np.sqrt(k)
+    x = randn(dev, 1, 1000 + k, seed=10)
+    for kk, name in ((k, "fir_toeplitz_fwd"), (k + 1, "fir_tile_fwd")):
+        before = dict(cf.launches)
+        got = cf._tile(x[:, :1000 + kk - 1], ts[:1, :kk], 1, 0, 1000, precision)
+        assert {n for n in cf.launches
+                if cf.launches[n] != before[n]} == {name}
+        ref = cf.fir_tile_ref(x[:, :1000 + kk - 1], ts[:1, :kk], 1, 0, 1000,
+                              precision)
+        assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("s,k,n", [(2, 256, 1 << 15), (16, 256, 1 << 15),
+                                   (2, 64, 384), (16, 17, 128 * 77)])
+def test_cascade_tensor_core_route(dev, precision, s, k, n):
+    """The cascade's MMA stages against the twin and the forced FMA route."""
+    x = randn(dev, 3, n, seed=s)
+    taps = randn(dev, k, seed=k) * (0.05 if k == 256 else 1 / np.sqrt(k))
+    before = dict(cf.launches)
+    got = cf.fir_cascade(x, taps, s, precision=precision)
+    assert cf.launches["fir_cascade_mma_fwd"] == before["fir_cascade_mma_fwd"] + 1
+    assert cf.launches["fir_cascade_fwd"] == before["fir_cascade_fwd"]
+    ref = cf.fir_cascade_ref(x, taps, s, precision)
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) < TOL[precision]
+    fma = cf._launch_cascade(x, taps, s, precision, _fma=True)
+    assert cf.launches["fir_cascade_mma_fwd"] == before["fir_cascade_mma_fwd"] + 1
+    assert cf.launches["fir_cascade_fwd"] == before["fir_cascade_fwd"] + 1
+    assert rel(fma, ref) < TOL[precision]
+
+
 def test_complex_planes(dev):
     rng = np.random.RandomState(5)
     x = torch.from_numpy((rng.randn(2, 4096 + 95) + 1j * rng.randn(2, 4096 + 95))
@@ -87,9 +168,12 @@ def test_complex_planes(dev):
                fir_filter(x, tc.real.contiguous(), 4, "f32")) < TOL["f32"]
 
 
-def test_bf16_resident_bit_identical(dev):
-    x = randn(dev, 2, 4096, seed=6)
-    taps = randn(dev, 515, seed=7) * 0.05
+@pytest.mark.parametrize("k", [16, 515, 4097])
+def test_bf16_resident_bit_identical(dev, k):
+    """On both routes (K 16 takes the FMA route, the others the tensor
+    cores) the bf16-resident stream gives the f32 stream's bf16 output."""
+    x = randn(dev, 2, 1 << 14, seed=6)
+    taps = randn(dev, k, seed=7) * 0.05
     y32 = cf.fir_cascade(x, taps, 1, precision="bf16")
     y16 = cf.fir_cascade(x.to(torch.bfloat16), taps, 1, precision="bf16")
     assert torch.equal(y32, y16)

@@ -93,7 +93,7 @@ def test_costas_loop(order):
          + 0.05 * (rng.randn(300) + 1j * rng.randn(300))).astype(np.complex64)
     yj, (pj, fj) = jl.costas_loop(jnp.asarray(x), jl.costas_init_state(),
                                   0.062, order)
-    yt, (pt, ft) = tl.costas_loop(t(x), tl.costas_init_state(), 0.062, order)
+    yt, (pt, ft) = tl.costas_loop(t(x), tl.costas_init_state("cpu"), 0.062, order)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5)
     assert abs(wrap(pt.item() - float(pj))) < 1e-5
     assert abs(ft.item() - float(fj)) < 1e-5
@@ -106,7 +106,7 @@ def test_mm_exact(complex_mode):
     ft = tl.clock_recovery_mm_cc if complex_mode else tl.clock_recovery_mm_ff
     yj, nj, sj = fj(jnp.asarray(x), jl.mm_init_state(5.0, 0.5, complex_mode),
                     5.0, GO, GM, 0.005)
-    yt, nt, st = ft(t(x), tl.mm_init_state(5.0, 0.5, complex_mode), 5.0, GO,
+    yt, nt, st = ft(t(x), tl.mm_init_state(5.0, 0.5, complex_mode, "cpu"), 5.0, GO,
                     GM, 0.005)
     n = int(nj)
     assert nt.dtype == torch.int32 and int(nt) == n > 550
@@ -130,7 +130,7 @@ def test_mm_windowed(complex_mode):
           else tl.clock_recovery_mm_ff_windowed)
     yj, sj = fj(jnp.asarray(xw), jl.mm_windowed_init_state(
         sps, 0.5, complex_mode), sps, GO, GM, 0.005, W=W)
-    yt, st = ft(t(xw), tl.mm_windowed_init_state(sps, 0.5, complex_mode), sps,
+    yt, st = ft(t(xw), tl.mm_windowed_init_state(sps, 0.5, complex_mode, "cpu"), sps,
                 GO, GM, 0.005, W=W)
     assert yt.shape == yj.shape and yt.shape[0] > 400
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5)
@@ -176,7 +176,7 @@ def test_mm_chunked(complex_mode):
     yj, sj = fj(jnp.asarray(xw), jl.mm_windowed_init_state(
         float(sps), 0.5, complex_mode), sps, GO, GM, 0.005, W=W, chunk=chunk)
     yt, st = ft(t(xw), tl.mm_windowed_init_state(float(sps), 0.5,
-                                                 complex_mode),
+                                                 complex_mode, "cpu"),
                 sps, GO, GM, 0.005, W=W, chunk=chunk)
     assert yt.shape == yj.shape == ((T // chunk) * chunk,)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4)
@@ -198,7 +198,7 @@ def test_mm_chunked_exact_multiple_against_windowed():
     sps, W, chunk = 5, 32, 16
     x = nrz(700, sps, False, seed=9, levels=(-1.0, -1 / 3, 1 / 3, 1.0))
     xw, T = _chunked_input(x, sps, W, chunk, exact_multiple=True)
-    st0 = tl.mm_windowed_init_state(float(sps), 0.5)
+    st0 = tl.mm_windowed_init_state(float(sps), 0.5, device="cpu")
     yc, _ = tl.clock_recovery_mm_ff_chunked(t(xw), st0, sps, GO, GM, 0.005,
                                             W=W, chunk=chunk)
     yw, _ = tl.clock_recovery_mm_ff_windowed(t(xw), st0, sps, GO, GM, 0.005,

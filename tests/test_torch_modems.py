@@ -101,7 +101,7 @@ def test_fsk4_symbols_and_bits():
 
 def modem_pair(kind, **kw):
     cls = {"fsk4": "Fsk4Modem", "gmsk": "GmskModem", "psk": "PskModem"}[kind]
-    return getattr(jm, cls)(**kw), getattr(tm, cls)(**kw)
+    return getattr(jm, cls)(**kw), getattr(tm, cls)(**kw, device="cpu")
 
 
 @pytest.mark.parametrize("kind,kw,nsym", [
@@ -185,7 +185,8 @@ class TestDmrBurst:
 
     def _pair(self):
         return ((jdmr.DmrTransmitter(10), jdmr.DmrReceiver(10)),
-                (tdmr.DmrTransmitter(10), tdmr.DmrReceiver(10)))
+                (tdmr.DmrTransmitter(10, device="cpu"),
+                 tdmr.DmrReceiver(10, device="cpu")))
 
     def test_burst_roundtrip_clean(self):
         (txj, rxj), (txt, rxt) = self._pair()

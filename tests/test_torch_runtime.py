@@ -37,6 +37,12 @@ def out(y):
     return y.numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
 
 
+def cpu(pkg):
+    """Keyword that keeps a grtpu_torch entry point on the CPU (its default
+    device is the card); grtpu takes no such argument."""
+    return {"device": "cpu"} if pkg is grtpu_torch else {}
+
+
 def fir_chain(kind, specs, chunk, **kw):
     """pad -> FirFilter(decim, taps) for each spec -> pad executor."""
     pkg, filt, _, f32, _ = PKGS[kind]
@@ -45,7 +51,7 @@ def fir_chain(kind, specs, chunk, **kw):
     pout = g.add_output(pkg.Port(f32))
     g.connect(pin, *[filt.FirFilter(d, t, "fff", impl="mxu") for d, t in specs],
               pout)
-    return pkg.StreamExecutor(g, chunk_size=chunk, **kw)
+    return pkg.StreamExecutor(g, chunk_size=chunk, **kw, **cpu(pkg))
 
 
 def run_both(specs, x, chunk):
@@ -168,7 +174,7 @@ class TestSourcesSinksJoins:
                       (add, 0))
             g.connect(gen.VectorSource(db), (add, 1))
             g.connect(add, sink)
-            ex = pkg.StreamExecutor(g, chunk_size=32)
+            ex = pkg.StreamExecutor(g, chunk_size=32, **cpu(pkg))
             ex.run(steps=5)
             res[kind] = sink.data()
         assert res["torch"].shape == (160,)
@@ -183,10 +189,10 @@ class TestSourcesSinksJoins:
             g.connect(gen.VectorSource(np.arange(5, dtype=np.float32),
                                        repeat=True),
                       gen.AddConst(2.0), gen.MultiplyConst(0.5), sink)
-            ex = pkg.StreamExecutor(g, chunk_size=4)
+            ex = pkg.StreamExecutor(g, chunk_size=4, **cpu(pkg))
             ex.run(steps=4)
             res[kind] = sink.data()
-            ex2 = pkg.StreamExecutor(g, chunk_size=4)
+            ex2 = pkg.StreamExecutor(g, chunk_size=4, **cpu(pkg))
             ex2.run(steps=3)
             res[kind + "2"] = sink.data()
         np.testing.assert_array_equal(res["torch"], res["jax"])
@@ -200,7 +206,8 @@ class TestSourcesSinksJoins:
         pout = g.add_output(grtpu_torch.Port(torch.float32))
         g.connect(pin, tgen.AddConst(1.0), pout)
         g.connect(pin, tgen.NullSink())
-        y = grtpu_torch.StreamExecutor(g, chunk_size=8).run(np.zeros(16))
+        y = grtpu_torch.StreamExecutor(g, chunk_size=8,
+                                       device="cpu").run(np.zeros(16))
         np.testing.assert_array_equal(y.numpy(), np.ones(16))
 
     def test_hier_flatten(self):
@@ -223,7 +230,7 @@ class TestSourcesSinksJoins:
         pin = g.add_input(grtpu_torch.Port(torch.float32))
         pout = g.add_output(grtpu_torch.Port(torch.float32))
         g.connect(pin, Outer(), pout)
-        ex = grtpu_torch.StreamExecutor(g, chunk_size=16)
+        ex = grtpu_torch.StreamExecutor(g, chunk_size=16, device="cpu")
         assert len(ex.flat.blocks) == 4
         x = np.arange(32, dtype=np.float32)
         np.testing.assert_array_equal(ex.run(x).numpy(), ((x + 1) * 2 + 1) * 2)
@@ -255,7 +262,8 @@ class TestGuards:
         pin = g.add_input(grtpu_torch.Port(torch.float32))
         pout = g.add_output(grtpu_torch.Port(torch.float32))
         g.connect(pin, blk, pout)
-        y = grtpu_torch.StreamExecutor(g, chunk_size=8).run(np.ones(8))
+        y = grtpu_torch.StreamExecutor(g, chunk_size=8,
+                                       device="cpu").run(np.ones(8))
         assert y[-1].item() == 8.0
 
     @pytest.mark.parametrize("kw", ["debug_taps", "fuse_firs"])
@@ -288,7 +296,7 @@ class TestGuards:
         pin = g.add_input(grtpu_torch.Port(torch.float32))
         pout = g.add_output(grtpu_torch.Port(torch.float32))
         g.connect(pin, Vr(), pout)
-        ex = grtpu_torch.StreamExecutor(g, chunk_size=8)
+        ex = grtpu_torch.StreamExecutor(g, chunk_size=8, device="cpu")
         with pytest.raises(ValueError, match="variable-rate apply must return"):
             ex.run(np.zeros(8))
 
@@ -302,7 +310,7 @@ class TestCheckpoint:
         g.connect(pin, filt.FirFilter(2, rng_taps, "fff", impl="mxu"),
                   filt.IirFilter([0.3, 0.2], [1.0, 0.5]),
                   filt.SinglePoleIir(0.1), pout)
-        return pkg.StreamExecutor(g, chunk_size=64)
+        return pkg.StreamExecutor(g, chunk_size=64, **cpu(pkg))
 
     def test_roundtrip(self, tmp_path):
         rng = np.random.RandomState(6)

@@ -94,6 +94,32 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_default_device_is_the_card():
+    """Entry points run on the card unless the caller names another device;
+    resolving the default touches no device."""
+    import inspect
+
+    import torch
+
+    from grtpu_torch.digital import loops, modems
+    from grtpu_torch.models import dmr
+    from grtpu_torch.runtime.executor import StreamExecutor
+    from grtpu_torch.utils import device
+
+    assert device.resolve() == torch.device("cuda")
+    assert device.resolve(None) == torch.device("cuda")
+    assert device.resolve("cpu") == torch.device("cpu")
+    assert device.resolve(torch.device("cuda", 1)) == torch.device("cuda:1")
+    for fn in (StreamExecutor.__init__, modems.GmskModem.__init__,
+               modems.PskModem.__init__, modems.Fsk4Modem.__init__,
+               dmr.DmrTransmitter.__init__, dmr.DmrReceiver.__init__,
+               loops.costas_init_state, loops.mm_init_state,
+               loops.mm_windowed_init_state):
+        assert inspect.signature(fn).parameters["device"].default is None, fn
+    src = inspect.getsource(device)
+    assert "is_available" not in src
+
+
 def test_kernel_build_dir_is_ignored():
     """The kernel build cache lives in a directory git ignores."""
     from grtpu_torch.ops import _build

@@ -41,6 +41,12 @@ def out(y):
     return y.numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
 
 
+def cpu(pkg):
+    """Keyword that keeps a grtpu_torch entry point on the CPU (its default
+    device is the card); grtpu takes no such argument."""
+    return {"device": "cpu"} if pkg is grtpu_torch else {}
+
+
 def _nrz(nsym, sps, seed=0):
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, nsym)
@@ -59,7 +65,7 @@ def mm_graph(kind, tail=(), chunk=1000, cplx=False, **kw):
     pout = g.add_output(pkg.Port(blocks[-1].out_ports[0].dtype if blocks
                                  else dt))
     g.connect(pin, mm, *blocks, pout)
-    return pkg.StreamExecutor(g, chunk_size=chunk, **kw), mm
+    return pkg.StreamExecutor(g, chunk_size=chunk, **kw, **cpu(pkg)), mm
 
 
 def hand_mm(x, mm, cplx=False):
@@ -160,7 +166,7 @@ class TestVrRateLogic:
         g.connect(pin, (add, 1))
         g.connect(add, pout)
         with pytest.raises(ValueError, match="variable-rate"):
-            grtpu_torch.StreamExecutor(g, chunk_size=512)
+            grtpu_torch.StreamExecutor(g, chunk_size=512, device="cpu")
 
     def test_required_multiple_exact(self):
         taps = firdes.low_pass(1.0, 1.0, 0.2, 0.1)
@@ -172,7 +178,7 @@ class TestVrRateLogic:
             pout = g.add_output(pkg.Port(f32))
             g.connect(pin, filt.InterpFirFilter(3, taps, "fff"),
                       filt.FirFilter(2, taps, "fff", impl="mxu"), pout)
-            ex = pkg.StreamExecutor(g, chunk_size=2048)
+            ex = pkg.StreamExecutor(g, chunk_size=2048, **cpu(pkg))
             assert ex.required_multiple() == 2
             res[kind] = out(ex.run(x))
         assert res["torch"].shape == (4096 * 3 // 2,)
@@ -187,7 +193,7 @@ def dmr_graph(kind, chunk=4096):
     ClockRecoveryMMFF(omega=10, gain_mu=0.05, limit 0.005) ->
     FourLevelSlicer(scale=3)."""
     pkg, db, filt, analog, _, c64, u8 = PKGS[kind]
-    modem = Fsk4Modem(samples_per_symbol=SPS)
+    modem = Fsk4Modem(samples_per_symbol=SPS, device="cpu")
     g = pkg.Graph()
     pin = g.add_input(pkg.Port(c64))
     pout = g.add_output(pkg.Port(u8))
@@ -197,11 +203,11 @@ def dmr_graph(kind, chunk=4096):
                                    mu=0.5, gain_mu=0.05,
                                    omega_relative_limit=0.005),
               db.FourLevelSlicer(scale=3.0), pout)
-    return pkg.StreamExecutor(g, chunk_size=chunk)
+    return pkg.StreamExecutor(g, chunk_size=chunk, **cpu(pkg))
 
 
 def dmr_stream(nsym, seed=0):
-    modem = Fsk4Modem(samples_per_symbol=SPS)
+    modem = Fsk4Modem(samples_per_symbol=SPS, device="cpu")
     dibits = np.random.RandomState(seed).randint(0, 4, nsym).astype(np.uint8)
     return dibits, modem.modulate(dibits).numpy()
 

@@ -56,9 +56,15 @@ def graph(kind, chain, in_c=True):
     return g
 
 
+def cpu(pkg):
+    """Keyword that keeps a grtpu_torch entry point on the CPU (its default
+    device is the card); grtpu takes no such argument."""
+    return {"device": "cpu"} if pkg is grtpu_torch else {}
+
+
 def run(kind, g, x, chunk):
     pkg = grtpu if kind == "jax" else grtpu_torch
-    y = pkg.StreamExecutor(g, chunk_size=chunk).run(
+    y = pkg.StreamExecutor(g, chunk_size=chunk, **cpu(pkg)).run(
         jnp.asarray(x) if kind == "jax" else x)
     return np.asarray(y) if kind == "jax" else y.numpy()
 
@@ -167,7 +173,7 @@ class TestCheckpointAcrossPackages:
         m = jfm if kind == "jax" else tfm
         pkg = grtpu if kind == "jax" else grtpu_torch
         return pkg.StreamExecutor(graph(kind, [m.WfmRcv(QUAD, DECIM)]),
-                                  chunk_size=self.CHUNK)
+                                  chunk_size=self.CHUNK, **cpu(pkg))
 
     @pytest.mark.parametrize("writer,reader", [("jax", "torch"),
                                                ("torch", "jax")])
