@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 Phases (each raises on failure; nothing is caught):
   1. Require a CUDA device, print its name and power limit, pin float32
      matmuls and convolutions to full precision (no TF32).
-  2. Build the Hopper FIR kernels from grtpu_torch/csrc (nvcc, sm_90a).
+  2. Build the Hopper FIR kernels from grtpu_torch/csrc (one nvcc per source,
+     started together, sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
      Each case prints its bound (the larger of useful FLOP over the peak its
@@ -19,16 +20,19 @@ Phases (each raises on failure; nothing is caught):
      cases are held against the call in float32, which meets their
      tolerance), and the decimating cases, which are small enough to sit on
      the host's launch cost, are timed again with both replayed from a CUDA
-     graph; where a case runs on the tensor cores, the FMA route is forced on the same input and
-     timed in turns too.
+     graph; where a case runs on the tensor cores, the FMA route is forced
+     on the same input and timed in turns too (fma_route_ms).  The host's
+     cost of one fir_decim call at the main path's chunk is timed alone
+     (batches of 1,000 calls on the host clock, no synchronize between them).
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
-     recovered-audio SNR and against the same chain on the plain path; and
-     the headline workload (16 pipes x 2^20 samples x 16 stages of 256
+     recovered-audio SNR and against the same chain on the plain path; the
+     WBFM bank's audio FIR (64 channels x 2^18) through fir_decim in f32;
+     and the headline workload (16 pipes x 2^20 samples x 16 stages of 256
      taps) through fir_cascade: the explicit cascade in f32 and bf16x3 and
-     the composed 4097-tap filter in bf16x3 and on the bf16-resident stream.
-     Kernel launch counts are read around this phase only.
+     the composed 4097-tap filter in f32, in bf16x3 and on the bf16-resident
+     stream.  Kernel launch counts are read around this phase only.
   5. Drive the DMR 4FSK receive slice on the card (it reaches no hand
      kernel; its matched filter is a float32 Toeplitz matmul):
      a. the burst bank at full width (benchmarks/dmr_bench.py: 128 channels
@@ -117,13 +121,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(a, b, reps_a: int, reps_b: int):
-    """Mean milliseconds of ``a()`` and of ``b()``, timed a, b, b, a."""
-    a1 = cuda_ms(a, reps_a)
-    b1 = cuda_ms(b, reps_b)
-    b2 = cuda_ms(b, reps_b)
-    a2 = cuda_ms(a, reps_a)
-    return (a1 + a2) / 2, (b1 + b2) / 2
+def in_turns(a, b, reps_a: int, reps_b: int, rounds: int = 1):
+    """Mean milliseconds of ``a()`` and of ``b()``, timed a, b, b, a; the
+    median of ``rounds`` such rounds (a case that sits on the host's launch
+    cost moves with whatever else the host is doing)."""
+    ta, tb = [], []
+    for _ in range(rounds):
+        a1 = cuda_ms(a, reps_a)
+        b1 = cuda_ms(b, reps_b)
+        b2 = cuda_ms(b, reps_b)
+        a2 = cuda_ms(a, reps_a)
+        ta.append((a1 + a2) / 2)
+        tb.append((b1 + b2) / 2)
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -167,13 +177,14 @@ def align(ref, est, max_lag=256):
     return r[: n - lag], e[lag:n]
 
 
-def check_kernels(torch, cf, fir, firdes):
+def check_kernels(torch, cf, fir, firdes, _build):
     """Phase 3: every kernel case against its twin; returns per-case rows."""
     dev = torch.device("cuda")
     rows = []
 
     def case(name, kernel, precision, run, twin, flop, nbytes, reps=10,
-             twin_reps=3, library=None, lib_reps=10, fma=None, graphed=False):
+             twin_reps=3, library=None, lib_reps=10, fma=None, graphed=False,
+             rounds=1):
         got = run()
         ref = twin()
         torch.cuda.synchronize()
@@ -183,16 +194,16 @@ def check_kernels(torch, cf, fir, firdes):
         abs_err, rel_err = errors(got, ref)
         bound_ms, bound_by = bound(flop, nbytes, precision)
         times = []
-        library_ms = fma_ms = None
+        library_ms = fma_ms = g_ms = g_fma = None
         if library is not None:
             lib_err = errors(library().reshape(ref.shape).float(), ref)[1]
             if not lib_err <= TOL[precision]:
                 fail(f"{name} {precision}: the library call is off its twin "
                      f"by {lib_err:.3e}: it does not compute this function")
-            ms, library_ms = in_turns(run, library, reps, lib_reps)
+            ms, library_ms = in_turns(run, library, reps, lib_reps, rounds)
             times.append(ms)
         if fma is not None:
-            ms, fma_ms = in_turns(run, fma, reps, reps)
+            ms, fma_ms = in_turns(run, fma, reps, reps, rounds)
             times.append(ms)
         if not times:
             times.append(cuda_ms(run, reps))
@@ -201,8 +212,12 @@ def check_kernels(torch, cf, fir, firdes):
         in_graph = ""
         if graphed:
             # small cases sit on the host's launch cost: the card's own time
-            in_graph = (f" in_a_graph: kernel_ms={graph_ms(run, 20):.4f} "
+            g_ms = graph_ms(run, 20)
+            in_graph = (f" in_a_graph: kernel_ms={g_ms:.4f} "
                         f"library_ms={graph_ms(library, 20):.4f}")
+            if fma is not None:
+                g_fma = graph_ms(fma, 20)
+                in_graph += f" fma_route_ms={g_fma:.4f}"
         ok = rel_err <= TOL[precision]
         lib = ("none" if library_ms is None else
                f"{library_ms:.4f} (conv1d, rel_err vs twin {lib_err:.1e})")
@@ -216,14 +231,17 @@ def check_kernels(torch, cf, fir, firdes):
               + f" {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {precision}: kernel disagrees with its twin")
-        if fma_ms is not None and not ms < fma_ms:
-            fail(f"{name} {precision}: the tensor-core route ({ms:.4f} ms) is "
-                 f"not faster than the FMA route ({fma_ms:.4f} ms)")
+        # the route taken must be the faster one; where both sit on the
+        # host's launch cost, by the card's own time
+        pair = (g_ms, g_fma) if graphed and fma is not None else (ms, fma_ms)
+        if fma_ms is not None and not pair[0] < pair[1]:
+            fail(f"{name} {precision}: the tensor-core route ({pair[0]:.4f} "
+                 f"ms) is not faster than the FMA route ({pair[1]:.4f} ms)")
         rows.append(dict(case=name, kernel=kernel, precision=precision,
                          max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms,
-                         fma_ms=fma_ms))
+                         fma_ms=fma_ms, graph_ms=g_ms))
         return got
 
     def conv1d(x, taps, decim):
@@ -245,12 +263,34 @@ def check_kernels(torch, cf, fir, firdes):
                           .astype(np.float32)).to(dev)
     t193 = cf._tapsets(taps193, dev)
     nout = MAIN_CHUNK // AUDIO_DECIM
-    case("fir_decim 1x65536 K193 d8", "fir_tile_fwd", "bf16x3",
-         lambda: cf.fir_decim(xm, t193, AUDIO_DECIM, precision="bf16x3"),
+
+    def chunk():
+        return cf.fir_decim(xm, t193, AUDIO_DECIM, precision="bf16x3")
+
+    case("fir_decim 1x65536 K193 d8", "fir_decim_mma_fwd", "bf16x3", chunk,
          lambda: cf.fir_tile_ref(xm, t193, AUDIO_DECIM, 0, nout, "bf16x3"),
          flop=2 * len(taps193) * nout,
          nbytes=4 * (xm.numel() + len(taps193) + nout),
-         library=conv1d(xm, t193[0], AUDIO_DECIM), graphed=True)
+         library=conv1d(xm, t193[0], AUDIO_DECIM), graphed=True,
+         # 200 calls, five rounds: at this size the eager time is the host's
+         # issue rate, which the first few calls after an idle spell do not
+         # show and which a busy host moves
+         reps=200, lib_reps=200, rounds=5,
+         fma=lambda: cf._launch_tile(xm, t193, AUDIO_DECIM, 0, nout, "bf16x3",
+                                     _fma=True))
+    # what one such call costs the host: the wrapper's Python and the launch
+    host_us = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            chunk()
+        host_us.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"host cost fir_decim 1x65536 K193 d8 bf16x3: "
+          f"{float(np.median(host_us)):.2f} us per call (median of 5 batches "
+          f"of 1000 calls, host clock, no synchronize: "
+          f"{' '.join(f'{v:.2f}' for v in host_us)})", flush=True)
 
     # fir_decim at the WBFM bank shape (benchmarks/wfm_bench.py: 64 ch x
     # 2^18 samples at 256 kS/s, 155-tap decimate-by-8 audio FIR)
@@ -260,14 +300,56 @@ def check_kernels(torch, cf, fir, firdes):
     t155 = cf._tapsets(taps155, dev)
     nout = (1 << 18) // AUDIO_DECIM
     x16 = x.to(torch.bfloat16)
+    bank = {"x": x, "taps": t155}
     for prec in ("bf16x3", "f32", "bf16"):
-        case("fir_decim 64x2^18 K155 d8", "fir_tile_fwd", prec,
-             lambda: cf.fir_decim(x, t155, AUDIO_DECIM, precision=prec),
-             lambda: cf.fir_tile_ref(x, t155, AUDIO_DECIM, 0, nout, prec),
-             flop=2 * k * 64 * nout, nbytes=4 * (x.numel() + k + 64 * nout),
-             library=conv1d(x16 if prec == "bf16" else x, t155[0],
-                            AUDIO_DECIM), graphed=True)
-    del x, x16
+        bank[prec] = case(
+            "fir_decim 64x2^18 K155 d8",
+            "fir_decim_fwd" if prec == "f32" else "fir_decim_mma_fwd", prec,
+            lambda: cf.fir_decim(x, t155, AUDIO_DECIM, precision=prec),
+            lambda: cf.fir_tile_ref(x, t155, AUDIO_DECIM, 0, nout, prec),
+            flop=2 * k * 64 * nout, nbytes=4 * (x.numel() + k + 64 * nout),
+            library=conv1d(x16 if prec == "bf16" else x, t155[0],
+                           AUDIO_DECIM), graphed=True,
+            fma=None if prec == "f32" else
+            (lambda: cf._launch_tile(x, t155, AUDIO_DECIM, 0, nout, prec,
+                                     _fma=True)))
+    del x16
+    # the same filter in its ccf form at the bank's width: 64 complex
+    # channels, the two planes of each as rows of one launch (no single
+    # library call computes it)
+    xc = torch.complex(x, x.flip(0))
+    for prec in ("bf16x3", "f32"):
+        case("fir_decim_c 64x2^18 K155 d8",
+             "fir_decim_fwd" if prec == "f32" else "fir_decim_mma_fwd", prec,
+             lambda: cf.fir_decim_c(xc, t155[0], AUDIO_DECIM, precision=prec),
+             lambda: fir.fir_filter(xc, t155[0], AUDIO_DECIM, prec),
+             flop=2 * k * 2 * 64 * nout,
+             nbytes=8 * xc.numel() + 4 * k + 8 * 64 * nout, reps=5)
+    del xc
+
+    # short filters at decimation 8 and 2: the two decimating routes side by
+    # side around cuda_fir._dm_min_taps (timed only, from a CUDA graph)
+    for kk in (16, 32, 64, 128):
+        tk = cf._tapsets(np.random.RandomState(kk).randn(kk) / kk, dev)
+        for d in (8, 2):
+            xs = x[:, :(1 << 15) * d + kk - 1].contiguous()
+            for prec in ("bf16", "bf16x3"):
+                plan = cf._Plan(
+                    "fir_decim_mma_fwd", _build.library().fir_decim_mma_fwd,
+                    (64, xs.shape[1], 1, kk, d, 0, 1 << 15,
+                     cf._PRECISION_CODE[prec])
+                    + cf._decim_mma_plan(prec, d, kk, 64, 1 << 15))
+                tensor_ms = graph_ms(
+                    lambda: cf._launch_tile(xs, tk, d, 0, 1 << 15, prec,
+                                            _plan=plan), 20)
+                fma_ms = graph_ms(
+                    lambda: cf._launch_tile(xs, tk, d, 0, 1 << 15, prec,
+                                            _fma=True), 20)
+                print(f"decim routes 64x2^15 outputs d{d} K{kk} {prec}: "
+                      f"tensor_ms={tensor_ms:.4f} fma_ms={fma_ms:.4f} (a call "
+                      f"takes {cf._route(prec, d, kk, 64, 1 << 15)})",
+                      flush=True)
+    del xs
 
     # complex streams at a small shape, against the plain complex FIR
     k, d = 200, 4
@@ -276,7 +358,7 @@ def check_kernels(torch, cf, fir, firdes):
                            ).astype(np.complex64)).to(dev)
     tr = torch.from_numpy((rng.randn(k) / k).astype(np.float32)).to(dev)
     # (two real planes a launch; the complex cases have no single library call)
-    case("fir_decim_c 4x16k K200 d4", "fir_tile_fwd", "f32",
+    case("fir_decim_c 4x16k K200 d4", "fir_decim_fwd", "f32",
          lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
          lambda: fir.fir_filter(xc, tr, d, "f32"),
          flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096)
@@ -286,7 +368,7 @@ def check_kernels(torch, cf, fir, firdes):
                            ).astype(np.complex64)).to(dev)
     tc = torch.from_numpy(((rng.randn(k) + 1j * rng.randn(k)) / k
                            ).astype(np.complex64)).to(dev)
-    case("fir_decim_cc 4x8k K96 d2", "fir_tile_fwd", "bf16x3",
+    case("fir_decim_cc 4x8k K96 d2", "fir_decim_mma_fwd", "bf16x3",
          lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
          lambda: fir.fir_filter(xc, tc, d, "bf16x3"),
          flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096)
@@ -300,7 +382,7 @@ def check_kernels(torch, cf, fir, firdes):
                           .astype(np.float32)).to(dev)
     t256 = cf._tapsets(taps, dev)[0]
     tcomp = cf._tapsets(comp, dev)
-    headline = {"x": xb, "taps": t256, "comp": tcomp}
+    headline = {"x": xb, "taps": t256, "comp": tcomp, "bank": bank}
     n, kc = 1 << 20, len(comp)
     io_bytes = 4 * 2 * xb.numel()
     for prec in ("f32", "bf16x3", "bf16"):
@@ -315,7 +397,8 @@ def check_kernels(torch, cf, fir, firdes):
     # the composed filter has zero history: the library call gets the stream
     # behind its K-1 zeros, padded outside the timed call
     xpad = torch.nn.functional.pad(xb, (kc - 1, 0))
-    case("fir_cascade 16x2^20 K4097", "fir_tile_fwd", "f32",
+    headline["comp f32"] = case(
+         "fir_cascade 16x2^20 K4097", "fir_tile_fwd", "f32",
          lambda: cf.fir_cascade(xb, tcomp, 1, precision="f32"),
          lambda: cf.fir_tile_ref(xb, tcomp, 1, kc - 1, n, "f32"),
          flop=2 * kc * xb.numel(), nbytes=io_bytes + 4 * kc, reps=3,
@@ -407,8 +490,9 @@ def wbfm_graph(torch, kernel: bool):
 
 def run_main_path(torch, cf, headline):
     """Phase 4: the WBFM chain through Graph + StreamExecutor on the card
-    (kernel path, then the plain path), and the headline workload through
-    fir_cascade.  Launch counts cover exactly these calls."""
+    (kernel path, then the plain path), the WBFM bank's audio FIR through
+    fir_decim and the headline workload through fir_cascade.  Launch counts
+    cover exactly these calls."""
     from grtpu_torch import Graph, StreamExecutor
     from grtpu_torch.runtime.block import Port
     from grtpu_torch.models.fm import FmDeemph
@@ -438,7 +522,11 @@ def run_main_path(torch, cf, headline):
         audio[kind] = y.cpu().numpy()
         rate[kind] = MAIN_SAMPLES / dt / 1e6
     x, x16 = headline["x"], headline["x16"]
-    yb = {"f32": cf.fir_cascade(x, headline["taps"], 16, precision="f32"),
+    bank = headline["bank"]
+    yb = {"bank f32": cf.fir_decim(bank["x"], bank["taps"], AUDIO_DECIM,
+                                   precision="f32"),
+          "comp f32": cf.fir_cascade(x, headline["comp"], 1, precision="f32"),
+          "f32": cf.fir_cascade(x, headline["taps"], 16, precision="f32"),
           "bf16x3": cf.fir_cascade(x, headline["taps"], 16,
                                    precision="bf16x3"),
           "comp bf16x3": cf.fir_cascade(x, headline["comp"], 1,
@@ -476,7 +564,8 @@ def run_main_path(torch, cf, headline):
     if not diff <= TOL["bf16x3"]:
         fail("kernel WBFM chain disagrees with the plain chain")
     for key, got in yb.items():
-        if not torch.equal(got, headline[key]):
+        want = bank["f32"] if key == "bank f32" else headline[key]
+        if not torch.equal(got, want):
             fail(f"headline workload output ({key}) differs from the checked "
                  f"output of phase 3")
     for name in cf.launches:
@@ -687,15 +776,16 @@ def main() -> int:
     from grtpu_torch.ops import _build, cuda_fir as cf, fir
     from grtpu_torch.utils import firdes
 
-    cached = _build.library_path().exists()
+    cached = all(path.exists() for path in _build.library_paths())
     t0 = time.perf_counter()
     _build.library()
-    print(f"kernels built: {_build.library_path().name} in "
+    print(f"kernels built: "
+          f"{', '.join(path.name for path in _build.library_paths())} in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({'loaded from cache' if cached else 'nvcc ran'})", flush=True)
 
     # phase 3: each kernel against its twin
-    rows, headline = check_kernels(torch, cf, fir, firdes)
+    rows, headline = check_kernels(torch, cf, fir, firdes, _build)
 
     # phase 4: the main path
     counts, rate = run_main_path(torch, cf, headline)
@@ -709,8 +799,10 @@ def main() -> int:
     print(f"DMR path launches: {dict(cf.launches)}")
 
     # phase 6: report, for each kernel the case the main path launches most
-    pick = {"fir_tile_fwd": ("fir_decim 1x65536 K193 d8", "bf16x3"),
+    pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
+            "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),
+            "fir_decim_mma_fwd": ("fir_decim 1x65536 K193 d8", "bf16x3"),
             "fir_cascade_fwd": ("fir_cascade 16x2^20 S16 K256", "f32"),
             "fir_cascade_mma_fwd": ("fir_cascade 16x2^20 S16 K256", "bf16x3")}
     kernels = []
@@ -719,7 +811,8 @@ def main() -> int:
                    and r["precision"] == prec and r["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "grtpu_torch/csrc/fir_tile.cu",
+            "source": "grtpu_torch/csrc/fir_decim.cu"
+            if name.startswith("fir_decim") else "grtpu_torch/csrc/fir_tile.cu",
             "replaces": "grtpu/ops/pallas_fir.py:70",
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1,12 +1,17 @@
-// Hopper FIR kernels for grtpu_torch (built for sm_90a by ops/_build.py).
+// Hopper FIR kernels for grtpu_torch (built for sm_90a by ops/_build.py,
+// beside fir_decim.cu, which holds the decimating routes).
 //
 // Replaces the TPU kernel grtpu/ops/pallas_fir.py::_cascade_kernel
 // (pallas_fir.py:70-191) and its two pallas_call sites:
-//   * fir_tile_fwd     — the single-stage paths: f32 input at bf16/bf16x3
-//                        (:133-153) and f32 (:155-191 with nstages=1), and the
-//                        bf16-resident input at bf16 (:114-131).  Launched for
-//                        _single_stage (:449-493) and for fir_cascade
-//                        (:194-262) with one stage.  The FMA route.
+//   * fir_tile_fwd     — the single-stage paths on the CUDA cores: f32 input
+//                        at bf16/bf16x3 (:133-153) and f32 (:155-191 with
+//                        nstages=1), and the bf16-resident input at bf16
+//                        (:114-131).  Launched for _single_stage (:449-493)
+//                        and for fir_cascade (:194-262) with one stage, at
+//                        decimation 1 in f32 and for filters outside the
+//                        tensor-core route's range; decimating calls take
+//                        fir_decim.cu's kernels unless their window is too
+//                        large for those.
 //   * fir_toeplitz_fwd — the same single-stage paths in bf16 and bf16x3 at
 //                        decimation 1, on the tensor cores.
 //   * fir_cascade_fwd  — the multi-stage cascade (:155-191), S chained FIRs
@@ -20,20 +25,23 @@
 // 256-tap cascade stage and 2048 for the composed 4097-tap filter, far above
 // the H100's ridges (~20 FLOP/byte for float32 on the CUDA cores, 67 TFLOP/s
 // over 3.35 TB/s; ~295 for bf16 on the tensor cores, 989 TFLOP/s): those
-// paths are bound by operations.  The WBFM 155-tap decimate-by-8 filter is
-// at ~10 FLOP/byte, below both ridges: bound by bytes.
+// paths are bound by operations.
 //
-// The FMA route (f32 everywhere, every decimating call, filters too short
-// for the tensor cores): each block stages the K-tap vector itself (16 KB of
-// float32 at 4097 taps) and the input window in shared memory, and each
-// thread accumulates NG groups of R consecutive outputs with float32 FMA on
-// the CUDA cores.  A group slides a register window along the taps: per 4
-// taps it reads one float4 of window and one float4 of taps (broadcast) from
-// shared memory for 16 FMAs, and consecutive lanes read consecutive float4s,
-// so the loads are free of bank conflicts.  Decimation keeps that shape by
+// The FMA route (f32 everywhere, filters outside the tensor cores' range):
+// each block stages the taps (blocks of 2048 for the single stage, 8 KB of
+// float32 a plane) and the input window in shared memory, and each thread
+// accumulates 8 consecutive outputs with float32 FMA on the CUDA cores,
+// sliding a register window along the taps (slide8 in fir_common.cuh): per 8
+// taps it reads two float4 of window and two float4 of taps (broadcast) for
+// 64 FMAs, 128 FMAs among 150 instructions in the unrolled loop, and the
+// window rows are skewed so that lanes 8 floats apart load without bank
+// conflicts.  The single-stage kernel keeps that shape under decimation by
 // storing the window phase-major (offset w at row w % decim, column
-// w / decim) and walking the taps phase by phase; the kernel reads each input
-// sample from device memory once and computes only the outputs it keeps.
+// w / decim) and walking the taps phase by phase.  The cascade deals a
+// stage's groups of 8 outputs round-robin to 1024 threads over two skewed
+// buffers of up to 21,504 outputs plus the lookback, which every tile
+// recomputes; the wrapper picks the tile by the recompute and by how full
+// the grid's last wave is.
 //
 // The tensor-core route (bf16 and bf16x3, decimation 1, single stage and
 // cascade): the FMA route tops out at the CUDA cores' 67 TFLOP/s (a third of
@@ -50,7 +58,7 @@
 // cp.async, so the next pass's rows arrive behind this pass's MMAs.  Details
 // stand with the kernels below.
 //
-// Contract (both kernels, all precisions):
+// Contract (every kernel, all precisions):
 //   y[row, i] = sum_k taps[row % G, k] * x[row, i*decim + K-1-k - lead]
 // with x read as zero outside [0, total).  The cascade applies that S times
 // with decim = 1 and lead = K-1 (zero history), full rate.
@@ -66,118 +74,25 @@
 // PyTorch twin up to the order of the float32 sums (and, on the tensor
 // cores, the adder's alignment of the 16 products of a k-step).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fir_common.cuh"
 
 namespace {
 
-enum Precision { F32 = 0, BF16 = 1, BF16X3 = 2 };
-
-constexpr int R = 4;   // consecutive outputs per group (one float4)
-constexpr int NG = 2;  // groups per thread, blockDim.x * R apart
-constexpr int LOADS = 4;  // device-memory loads a thread keeps in flight
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Shared-memory layout of fir_tile_kernel, in floats per plane: taps (decim
+// rows of q8) then the window (decim skewed rows of tile + q8 + 8 columns).
+__host__ __device__ __forceinline__ int tile_q8(int decim, int kblk) {
+  return round8((kblk + decim - 1) / decim);
+}
+__host__ __device__ __forceinline__ int tile_row(int tile, int q8) {
+  return round4(skew(tile + q8 + 8));
 }
 
-// How a float32 operand is held in shared memory: NPL planes of floats
-// (F32: the value; BF16: its bf16 rounding; BF16X3: hi and lo words).
-template <int P> struct Mode {
-  static constexpr int NPL = P == BF16X3 ? 2 : 1;
-  static __device__ __forceinline__ void split(float v, float (&o)[2]) {
-    if (P == F32) {
-      o[0] = v;
-    } else {
-      o[0] = round_bf16(v);
-      o[1] = round_bf16(v - o[0]);
-    }
-  }
-  // acc[r] += sum_s t[s] * w[r + s], s < 4, for the R outputs of a group;
-  // w holds 8 consecutive window values (cur then next).
-  static __device__ __forceinline__ void mac(float (&acc)[R],
-                                             const float4 (&t)[NPL],
-                                             const float4 (&cur)[NPL],
-                                             const float4 (&nxt)[NPL]) {
-    const float th[4] = {t[0].x, t[0].y, t[0].z, t[0].w};
-    const float xh[8] = {cur[0].x, cur[0].y, cur[0].z, cur[0].w,
-                         nxt[0].x, nxt[0].y, nxt[0].z, nxt[0].w};
-    if (P == BF16X3) {
-      const float tl[4] = {t[NPL - 1].x, t[NPL - 1].y, t[NPL - 1].z,
-                           t[NPL - 1].w};
-      const float xl[8] = {cur[NPL - 1].x, cur[NPL - 1].y, cur[NPL - 1].z,
-                           cur[NPL - 1].w, nxt[NPL - 1].x, nxt[NPL - 1].y,
-                           nxt[NPL - 1].z, nxt[NPL - 1].w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r] = fmaf(th[q], xh[r + q], acc[r]);
-          acc[r] = fmaf(th[q], xl[r + q], acc[r]);
-          acc[r] = fmaf(tl[q], xh[r + q], acc[r]);
-        }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(th[q], xh[r + q], acc[r]);
-    }
-  }
-};
-
-__device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc[g] += taps (row of n4 values, a multiple of 4) slid along the window
-// row, for the NG groups of R outputs starting at columns col[g].
-template <int P>
-__device__ __forceinline__ void slide(float (&acc)[NG][R],
-                                      float* const (&tap)[Mode<P>::NPL],
-                                      float* const (&win)[Mode<P>::NPL],
-                                      const int (&col)[NG], int n4) {
-  constexpr int NPL = Mode<P>::NPL;
-  float4 cur[NG][NPL];
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int l = 0; l < NPL; ++l) cur[g][l] = ld4(win[l] + col[g]);
-  for (int q0 = 0; q0 < n4; q0 += 4) {
-    float4 t[NPL];
-#pragma unroll
-    for (int l = 0; l < NPL; ++l) t[l] = ld4(tap[l] + q0);
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      float4 nxt[NPL];
-#pragma unroll
-      for (int l = 0; l < NPL; ++l) nxt[l] = ld4(win[l] + col[g] + q0 + 4);
-      Mode<P>::mac(acc[g], t, cur[g], nxt);
-#pragma unroll
-      for (int l = 0; l < NPL; ++l) cur[g][l] = nxt[l];
-    }
-  }
-}
-
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-
-// Shared-memory layout of fir_tile_kernel, in floats per plane: taps
-// (decim rows of q4) then the window (decim rows of E = tile + q4).
-__host__ __device__ __forceinline__ int tile_q4(int decim, int kblk) {
-  return round4((kblk + decim - 1) / decim);
-}
-
-// One block = one (row, tile of blockDim.x * R * NG outputs).  Thread t owns
-// groups of R consecutive outputs at tile offsets (g * blockDim.x + t) * R.
-// Taps stream through shared memory in blocks of kblk.  For a tap block,
-// window offset m (tap k = k0 + kb-1 - m) of output i sits at sample
-// s0 + (i - i0)*decim + m; with m = q*decim + p it is row p, column
-// (i - i0) + q of the phase-major window, and tap row p, column q.
+// One block = one (row, tile of blockDim.x * 8 outputs).  Thread t owns the 8
+// consecutive outputs at tile offset 8 t.  Taps stream through shared memory
+// in blocks of kblk.  For a tap block, window offset m (tap k = k0 + kb-1 - m)
+// of output i sits at sample s0 + (i - i0)*decim + m; with m = q*decim + p it
+// is row p, column (i - i0) + q of the phase-major window, and tap row p,
+// column q.
 template <int P, typename XT>
 __global__ void fir_tile_kernel(const XT* __restrict__ x,
                                 const float* __restrict__ taps,
@@ -189,41 +104,39 @@ __global__ void fir_tile_kernel(const XT* __restrict__ x,
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
   const int row = blockIdx.y;
-  const int tile = nt * R * NG;
+  const int tile = nt * R8;
   const int i0 = blockIdx.x * tile;
-  const int q4 = tile_q4(decim, kblk);
-  const int E = tile + q4;
+  const int q8 = tile_q8(decim, kblk);
+  const int E = tile + q8 + 8;
+  const int ER = tile_row(tile, q8);
   float* tap[NPL];
   float* win[NPL];
 #pragma unroll
   for (int l = 0; l < NPL; ++l) {
-    tap[l] = smem + l * decim * q4;
-    win[l] = smem + NPL * decim * q4 + l * decim * E;
+    tap[l] = smem + l * decim * q8;
+    win[l] = smem + NPL * decim * q8 + l * decim * ER;
   }
   const XT* xr = x + (int64_t)row * total;
   const float* tr = taps + (int64_t)(row % G) * K;
 
-  float acc[NG][R];
+  float acc[R8];
 #pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[g][r] = 0.f;
+  for (int r = 0; r < R8; ++r) acc[r] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kblk) {
     const int kb = min(kblk, K - k0);
     const int64_t s0 = (int64_t)i0 * decim + (K - k0 - kb) - lead;
     const int wl = (tile - 1) * decim + kb;  // window offsets any output uses
     __syncthreads();  // the previous tap block is no longer being read
-    for (int idx = tid; idx < decim * q4; idx += nt) {
-      const int p = idx / q4, q = idx - p * q4;
+    for (int idx = tid; idx < decim * q8; idx += nt) {
+      const int p = idx / q8, q = idx - p * q8;
       const int m = q * decim + p;
       float v[2];
       Mode<P>::split(m < kb ? tr[k0 + kb - 1 - m] : 0.f, v);
 #pragma unroll
       for (int l = 0; l < NPL; ++l) tap[l][idx] = v[l];
     }
-    // LOADS samples in flight per thread: the fill is latency-bound at
-    // large decimation, where a block reads decim samples per output
+    // LOADS samples in flight per thread
     const int wtot = decim * E;
     for (int w0 = tid; w0 < wtot; w0 += LOADS * nt) {
       float xv[LOADS];
@@ -239,51 +152,54 @@ __global__ void fir_tile_kernel(const XT* __restrict__ x,
         if (w >= wtot) break;
         float v[2];
         Mode<P>::split(xv[u], v);
-        const int at = (w % decim) * E + w / decim;
+        const int at = (w % decim) * ER + skew(w / decim);
 #pragma unroll
         for (int l = 0; l < NPL; ++l) win[l][at] = v[l];
       }
     }
     __syncthreads();
     for (int p = 0; p < decim; ++p) {
-      float* tp[NPL];
-      float* wp[NPL];
+      const float* tp[NPL];
+      const float* wp[NPL];
 #pragma unroll
       for (int l = 0; l < NPL; ++l) {
-        tp[l] = tap[l] + p * q4;
-        wp[l] = win[l] + p * E;
+        tp[l] = tap[l] + p * q8;
+        wp[l] = win[l] + p * ER;
       }
-      int col[NG];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) col[g] = (g * nt + tid) * R;
-      slide<P>(acc, tp, wp, col, q4);
+      slide8<P>(acc, tp, wp, tid * R8, q8);
     }
   }
 
   float* yr = y + (int64_t)row * nout;
+  const int i = i0 + tid * R8;
+  if (i + R8 <= nout && (reinterpret_cast<uintptr_t>(yr + i) & 15) == 0) {
+    st4(yr + i, acc[0], acc[1], acc[2], acc[3]);
+    st4(yr + i + 4, acc[4], acc[5], acc[6], acc[7]);
+  } else {
 #pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = i0 + (g * nt + tid) * R + r;
-      if (i < nout) yr[i] = acc[g][r];
-    }
+    for (int r = 0; r < R8; ++r)
+      if (i + r < nout) yr[i + r] = acc[r];
+  }
 }
 
-// Floats per plane of one cascade buffer: the tile, its S*(K-1) lookback,
-// and slack for reads up to 10 past the valid region (a group's columns are
-// clamped to round4(lout), and round4(K) - K <= 3).
+// Floats per plane of one cascade buffer: the tile, its S*(K-1) lookback and
+// 24 columns of slack (a group starts below the stage's valid length and
+// slide8 reads 15 columns past the last padded tap), skewed.
+__host__ __device__ __forceinline__ int cascade_cols(int K, int S, int tile) {
+  return round8(tile + S * (K - 1) + 24);
+}
 __host__ __device__ __forceinline__ int cascade_cap(int K, int S, int tile) {
-  return round4(tile + S * (K - 1) + 16);
+  return round4(skew(cascade_cols(K, S, tile))) + 4;
 }
 
-// One block = one (row, tile of `tile` outputs).  The block loads its tile
-// plus S*(K-1) samples of lookback (zeros before sample 0) and runs the S
-// stages in shared memory, ping-ponging between two buffers; each stage's
-// valid region shrinks by K-1, and the last stage writes the tile.  Groups
-// past a stage's last output read from a clamped column and write nothing;
-// reads past the valid region meet finite values that only feed discarded
-// outputs.
+// One block = one (row, tile of `tile` outputs, a multiple of 8).  The block
+// loads its tile plus S*(K-1) samples of lookback (zeros before sample 0) and
+// runs the S stages in shared memory, ping-ponging between two skewed
+// buffers; each stage's valid region shrinks by K-1, and the last stage
+// writes the tile.  A stage's groups of 8 outputs are dealt round-robin to
+// the threads, so every thread has work until the last round.  Reads past the
+// valid region meet finite values (both buffers start finite everywhere) that
+// only feed discarded outputs or zero taps.
 template <int P>
 __global__ void fir_cascade_kernel(const float* __restrict__ x,
                                    const float* __restrict__ taps,
@@ -294,31 +210,33 @@ __global__ void fir_cascade_kernel(const float* __restrict__ x,
   float* smem = reinterpret_cast<float*>(smem4);
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
-  const int k4 = round4(K);
+  const int k8 = round8(K);
   const int halo = S * (K - 1);
   const int len0 = tile + halo;
+  const int cols = cascade_cols(K, S, tile);
   const int cap = cascade_cap(K, S, tile);
   float* tap[NPL];
   float* in[NPL];
   float* out[NPL];
 #pragma unroll
   for (int l = 0; l < NPL; ++l) {
-    tap[l] = smem + l * k4;
-    in[l] = smem + NPL * k4 + l * cap;
-    out[l] = smem + NPL * k4 + (NPL + l) * cap;
+    tap[l] = smem + l * k8;
+    in[l] = smem + NPL * k8 + l * cap;
+    out[l] = smem + NPL * k8 + (NPL + l) * cap;
   }
 
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * tile;
   const float* xr = x + (int64_t)row * n;
+  float* yr = y + (int64_t)row * n + t0;
   // reversed taps: stage output j = sum_m tap[m] * in[j + m]
-  for (int m = tid; m < k4; m += nt) {
+  for (int m = tid; m < k8; m += nt) {
     float v[2];
     Mode<P>::split(m < K ? taps[K - 1 - m] : 0.f, v);
 #pragma unroll
     for (int l = 0; l < NPL; ++l) tap[l][m] = v[l];
   }
-  for (int j0 = tid; j0 < cap; j0 += LOADS * nt) {
+  for (int j0 = tid; j0 < cols; j0 += LOADS * nt) {
     float xv[LOADS];
 #pragma unroll
     for (int u = 0; u < LOADS; ++u) {
@@ -329,51 +247,54 @@ __global__ void fir_cascade_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int u = 0; u < LOADS; ++u) {
       const int j = j0 + u * nt;
-      if (j >= cap) break;
+      if (j >= cols) break;
       float v[2];
       Mode<P>::split(xv[u], v);
+      const int at = skew(j);
 #pragma unroll
       for (int l = 0; l < NPL; ++l) {
-        in[l][j] = v[l];
-        out[l][j] = 0.f;
+        in[l][at] = v[l];
+        out[l][at] = 0.f;
       }
     }
   }
   __syncthreads();
 
   int len = len0;
-  const int chunk = nt * R * NG;
   for (int st = 0; st < S; ++st) {
     const int lout = len - (K - 1);
     const bool last = st == S - 1;
-    for (int base = 0; base < lout; base += chunk) {
-      float acc[NG][R];
+    const int ngrp = (lout + R8 - 1) / R8;
+    for (int grp = tid; grp < ngrp; grp += nt) {
+      const int col = grp * R8;
+      float acc[R8];
 #pragma unroll
-      for (int g = 0; g < NG; ++g)
+      for (int r = 0; r < R8; ++r) acc[r] = 0.f;
+      const float* tp[NPL];
+      const float* ip[NPL];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[g][r] = 0.f;
-      int col[NG], colr[NG];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        col[g] = base + (g * nt + tid) * R;
-        colr[g] = min(col[g], round4(lout));
+      for (int l = 0; l < NPL; ++l) {
+        tp[l] = tap[l];
+        ip[l] = in[l];
       }
-      slide<P>(acc, tap, in, colr, k4);
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int j = col[g] + r;
-          if (j >= lout) continue;
-          if (last) {
-            if (t0 + j < n) y[(int64_t)row * n + t0 + j] = acc[g][r];
-          } else {
-            float v[2];
-            Mode<P>::split(acc[g][r], v);
-#pragma unroll
-            for (int l = 0; l < NPL; ++l) out[l][j] = v[l];
-          }
+      slide8<P>(acc, tp, ip, col, k8);
+      if (last) {
+        // lout == tile: whole groups, 32-byte aligned (n % 128 == 0)
+        if (t0 + col < n) {
+          st4(yr + col, acc[0], acc[1], acc[2], acc[3]);
+          st4(yr + col + 4, acc[4], acc[5], acc[6], acc[7]);
         }
+      } else {
+        float v[R8][2];
+#pragma unroll
+        for (int r = 0; r < R8; ++r) Mode<P>::split(acc[r], v[r]);
+        const int at = skew(col);
+#pragma unroll
+        for (int l = 0; l < NPL; ++l) {
+          st4(out[l] + at, v[0][l], v[1][l], v[2][l], v[3][l]);
+          st4(out[l] + at + 4, v[4][l], v[5][l], v[6][l], v[7][l]);
+        }
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -432,34 +353,6 @@ __host__ __device__ __forceinline__ int tz_nh(int K) {
 // the E and O copies, read together by a warp, sit in different banks
 __host__ __device__ __forceinline__ int tz_tap_words(int nh) {
   return (TZ_N / 2) * (nh + 1) + 16;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo16,
-                                              __nv_bfloat16 hi16) {
-  return (uint32_t)__bfloat16_as_ushort(lo16) |
-         ((uint32_t)__bfloat16_as_ushort(hi16) << 16);
-}
-
-// v -> (hi, lo) bf16 words; lo is unused in the one-plane mode
-__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi,
-                                           __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(v);
-  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
 // Stage the reversed taps of one tap set as the E and O word copies of hs,
@@ -797,24 +690,16 @@ fir_cascade_mma_kernel(const float* __restrict__ x,
   }
 }
 
-template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 size_t tile_smem(int precision, int threads, int decim, int kblk) {
   const size_t npl = precision == BF16X3 ? 2 : 1;
-  const size_t q4 = tile_q4(decim, kblk);
-  const size_t tile = (size_t)threads * R * NG;
-  return sizeof(float) * npl * decim * (2 * q4 + tile);
+  const int q8 = tile_q8(decim, kblk);
+  return sizeof(float) * npl * decim * ((size_t)q8 + tile_row(threads * R8, q8));
 }
 
 size_t cascade_smem(int precision, int K, int S, int tile) {
   const size_t npl = precision == BF16X3 ? 2 : 1;
   return sizeof(float) * npl *
-         ((size_t)round4(K) + 2 * (size_t)cascade_cap(K, S, tile));
+         ((size_t)round8(K) + 2 * (size_t)cascade_cap(K, S, tile));
 }
 
 template <int P, typename XT>
@@ -825,7 +710,7 @@ cudaError_t launch_tile(const void* x, const float* taps, float* y, int B,
   auto kern = fir_tile_kernel<P, XT>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const int tile = threads * R * NG;
+  const int tile = threads * R8;
   dim3 grid((nout + tile - 1) / tile, B);
   kern<<<grid, threads, smem, stream>>>(static_cast<const XT*>(x), taps, y,
                                         total, G, K, decim, lead, nout, kblk);
@@ -836,6 +721,7 @@ template <int P>
 cudaError_t launch_cascade(const float* x, const float* taps, float* y, int B,
                            int n, int K, int S, int tile, int threads,
                            cudaStream_t stream) {
+  if (tile < R8 || tile % R8) return cudaErrorInvalidValue;
   const size_t smem = cascade_smem(P, K, S, tile);
   auto kern = fir_cascade_kernel<P>;
   cudaError_t err = set_smem(kern, smem);
@@ -905,8 +791,6 @@ size_t fir_tile_smem(int precision, int threads, int decim, int kblk) {
 size_t fir_cascade_smem(int precision, int K, int S, int tile) {
   return cascade_smem(precision, K, S, tile);
 }
-
-int fir_tile_outputs_per_thread() { return R * NG; }
 
 // x: (B, total) float32 (x_bf16 == 0) or bfloat16 (x_bf16 == 1), row-major
 // contiguous; taps: (G, K) float32; y: (B, nout) float32.

@@ -1,11 +1,13 @@
 """Build and load the Hopper kernels in ``grtpu_torch/csrc`` at first use.
 
-``nvcc`` compiles ``fir_tile.cu`` for ``sm_90a`` into a shared library with
-a plain C interface, which is loaded with ``ctypes``.  The library is cached
-under ``build/grtpu_torch/`` at the repository root (listed in
-``.gitignore``), keyed on a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  Nothing here runs when
-the module is imported: :func:`library` builds on its first call.
+``nvcc`` compiles each source (``fir_tile.cu``, ``fir_decim.cu``; both
+include ``fir_common.cuh``) for ``sm_90a`` into a shared library of its own
+with a plain C interface, all compilers started together, and the libraries
+are loaded with ``ctypes``.  They are cached under ``build/grtpu_torch/`` at
+the repository root (listed in ``.gitignore``), keyed on a hash of the
+source, the header and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing here runs when the module is imported:
+:func:`library` builds on its first call.
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fir_tile.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu")
+HEADERS = (CSRC / "fir_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -37,56 +42,76 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
-def library_path() -> Path:
-    """Path of the built library for the current source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fir_tile-{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels unless the cached library is current."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+def library_paths() -> list[Path]:
+    """Paths of the built libraries for the current sources and flags, one
+    per source."""
+    out = []
+    for src in SOURCES:
+        h = hashlib.sha256(src.read_bytes())
+        for header in HEADERS:
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        out.append(BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so")
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
+def build() -> list[Path]:
+    """Compile the sources whose cached library is not current, all at once."""
+    outs = library_paths()
+    jobs = []
+    for src, out in zip(SOURCES, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, tmp, out, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)  # atomic: no process loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def library() -> SimpleNamespace:
+    """The kernels' C entry points, built and loaded on the first call."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.fir_tile_fwd.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, i, p]
-    lib.fir_tile_fwd.restype = i
-    lib.fir_cascade_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.fir_cascade_fwd.restype = i
-    lib.fir_cascade_mma_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.fir_cascade_mma_fwd.restype = i
-    lib.fir_toeplitz_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i,
-                                     i, p]
-    lib.fir_toeplitz_fwd.restype = i
-    lib.fir_toeplitz_smem.argtypes = [i, i]
-    lib.fir_toeplitz_smem.restype = ctypes.c_size_t
-    lib.fir_toeplitz_rows_per_pass.argtypes = []
-    lib.fir_toeplitz_rows_per_pass.restype = i
-    lib.fir_tile_smem.argtypes = [i, i, i, i]
-    lib.fir_tile_smem.restype = ctypes.c_size_t
-    lib.fir_cascade_smem.argtypes = [i, i, i, i]
-    lib.fir_cascade_smem.restype = ctypes.c_size_t
-    lib.fir_tile_outputs_per_thread.argtypes = []
-    lib.fir_tile_outputs_per_thread.restype = i
-    lib.fir_error_string.argtypes = [i]
-    lib.fir_error_string.restype = ctypes.c_char_p
+    tile, decim = (ctypes.CDLL(str(path)) for path in build())
+    i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
+    sigs = {
+        tile: {
+            "fir_tile_fwd": ([p, i, p, p] + [i] * 10 + [p], i),
+            "fir_cascade_fwd": ([p, p, p] + [i] * 7 + [p], i),
+            "fir_cascade_mma_fwd": ([p, p, p] + [i] * 6 + [p], i),
+            "fir_toeplitz_fwd": ([p, i, p, p, p] + [i] * 10 + [p], i),
+            "fir_toeplitz_smem": ([i, i], i64),
+            "fir_toeplitz_rows_per_pass": ([], i),
+            "fir_tile_smem": ([i, i, i, i], i64),
+            "fir_cascade_smem": ([i, i, i, i], i64),
+            "fir_error_string": ([i], ctypes.c_char_p),
+        },
+        decim: {
+            "fir_decim_fwd": ([p, i, p, p] + [i] * 10 + [p], i),
+            "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
+            "fir_decim_smem": ([i] * 5, i64),
+            "fir_decim_mma_smem": ([i] * 5, i64),
+        },
+    }
+    lib = SimpleNamespace()
+    for dll, funcs in sigs.items():
+        for name, (argtypes, restype) in funcs.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            setattr(lib, name, fn)
     _lib = lib
     return lib

@@ -3,20 +3,30 @@
 Port of ``grtpu.ops.pallas_fir``: the same public functions and signatures
 minus ``interpret`` — ``fir_cascade``, ``fir_long``, ``batch_fir_long``,
 ``fir_decim``, ``fir_decim_c``, ``fir_decim_cc`` and ``_phase_split_taps`` —
-over the CUDA C++ kernels in ``grtpu_torch/csrc/fir_tile.cu``:
+over the CUDA C++ kernels in ``grtpu_torch/csrc``:
 
 * ``fir_tile_fwd``     — one FIR per batch row (row i uses tap set i % G),
   with a decimation stride and an optional zero lead, f32 or bf16 input,
-  float32 FMAs on the CUDA cores.  It serves every single-stage path:
-  fir_long, fir_decim (decimated outputs computed directly, no phase
-  split), the complex plane variants and fir_cascade with one stage.
+  float32 FMAs on the CUDA cores, the taps streamed in blocks.  It serves
+  decimation 1 in f32 and outside the tensor-core route's tap range, and
+  decimating calls whose window is too large for the two kernels below.
 * ``fir_toeplitz_fwd`` — the same single-stage FIR at decimation 1 in bf16
-  and bf16x3, on the tensor cores: rows of the stream against the Toeplitz
-  matrix of the taps.  ``_launch_tile`` sends those calls here.
+  and bf16x3, on the tensor cores (``wgmma``): rows of the stream against
+  the Toeplitz matrix of the taps.
+* ``fir_decim_fwd``    — decimation > 1 on the CUDA cores (f32, and bf16 /
+  bf16x3 below ``_dm_min_taps`` taps): a ring of ``cp.async`` stages feeds a
+  phase-major window, the phases split over the threads of a block.
+* ``fir_decim_mma_fwd`` — decimation > 1 in bf16 and bf16x3 on the tensor
+  cores (``mma.sync``): windows of the stream, 8 outputs apart, against the
+  strided Toeplitz matrix of the taps, behind the same ring.
 * ``fir_cascade_fwd``  — S chained FIRs with the same taps from zero
   history, the stages resident in shared memory, float32 FMAs (f32).
 * ``fir_cascade_mma_fwd`` — the same cascade in bf16 and bf16x3, each stage
   the tensor-core product of ``fir_toeplitz_fwd``.
+
+:func:`_route` says which of the single-stage kernels a call takes, as a
+pure function of (precision, decim, K, B, nout); :func:`_launch_plan` turns
+a call's shape into the kernel's launch parameters once and keeps them.
 
 Every public function holds the contract ``y[i] = sum_k taps[k] *
 x[i*d + K-1-k]`` (x carrying K-1 samples of history, or zero history for
@@ -26,10 +36,10 @@ fir_cascade); the TPU kernel's halo and orientation bookkeeping
 Dispatch is by the tensor's device: a CPU tensor runs the kernel's plain
 PyTorch twin (:func:`fir_tile_ref`, :func:`fir_cascade_ref`); a CUDA tensor
 launches the kernel, building it at first use, or raises.
-:func:`fir_toeplitz_ref` is the plain form of the tensor-core route's own
-arithmetic and layout.  ``launches`` counts the kernel launches, one per
-launch under the name of the entry that was called, for callers that must
-show a path went through the kernels.
+:func:`fir_toeplitz_ref` and :func:`fir_decim_mma_ref` are the plain forms
+of the tensor-core routes' own arithmetic and layout.  ``launches`` counts
+the kernel launches, one per launch under the name of the entry that was
+called, for callers that must show a path went through the kernels.
 
 ``tile_rows`` is accepted for grtpu signature compatibility; the Hopper
 kernels size their tiles from shared memory and the batch instead.
@@ -38,6 +48,7 @@ kernels size their tiles from shared memory and the batch instead.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,17 +59,19 @@ from grtpu_torch.ops.fir import (PRECISIONS, fir_filter, pad_last,
 LANE = 128
 
 # Kernel launch counts, by the name of the C entry that was called.
-launches = {"fir_tile_fwd": 0, "fir_toeplitz_fwd": 0, "fir_cascade_fwd": 0,
+launches = {"fir_tile_fwd": 0, "fir_toeplitz_fwd": 0, "fir_decim_fwd": 0,
+            "fir_decim_mma_fwd": 0, "fir_cascade_fwd": 0,
             "fir_cascade_mma_fwd": 0}
 
 _PRECISION_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
-_THREADS = 256
-_KBLK = 2048             # taps staged in shared memory per pass
+_THREADS = 256           # fir_tile_fwd: threads a block, 8 outputs each
+_KBLK = 2048             # fir_tile_fwd: taps staged in shared memory per pass
 _MAX_TILE_SPAN = 4096    # input samples a fir_tile_fwd window spans, at most
 _SMEM_OPTIN = 232448     # bytes of shared memory a Hopper block may opt into
-_CASCADE_TILES = (8192, 4096, 2048, 1024, 512, 256)  # largest that fits wins
 _TZ_PASS_ROWS = 128      # output rows of 128 a tensor-core block computes per pass
 _H100_SMS = 132          # blocks are sized for this many SMs off the card
+_DC_THREADS = 128        # threads a block of the decimating kernels
+_DC_STAGES = 3           # stages of their load ring
 # Below this many taps the tensor-core route stops winning: its work grows as
 # (K + 127) / K.  16 x 2^20 on an H100 (700 W), tensor / FMA ms: K 32 bf16
 # 0.082 / 0.076, bf16x3 0.116 / 0.135; K 64 bf16 0.078 / 0.099, bf16x3
@@ -71,6 +84,28 @@ _TZ_MIN_TAPS = 64
 # slower at these lengths; the cascade's stages have the same limit, and
 # need nstages * (K - 1) < 128 * 127 besides (_cascade_mma_tile).
 _TZ_MAX_TAPS = {"bf16": 20481, "bf16x3": 6145}
+# From how many taps a decimating bf16 or bf16x3 call takes the tensor cores,
+# by decimation (its work grows as (8 * decim + K - 1) / K, and a block's
+# tile shrinks with the decimation).  64 x 2^15 outputs on an H100 (700 W),
+# tensor / FMA ms from a CUDA graph (``python -m grtpu_torch.ops.sweep_plans``
+# prints these as "routes ..."):
+#   decimation 2   bf16   K 64 0.0236 / 0.0206   K 128 0.0252 / 0.0267
+#                  bf16x3 K 32 0.0258 / 0.0250   K 64  0.0267 / 0.0329
+#   decimation 3   bf16   K 32 0.0241 / 0.0232   K 64  0.0246 / 0.0261
+#                  bf16x3 K 16 0.0256 / 0.0279
+#   decimation 4   bf16   K 32 0.0264 / 0.0242   K 64  0.0261 / 0.0271
+#                  bf16x3 K 16 0.0231 / 0.0346
+#   decimation 8   bf16   K 16 0.0316 / 0.0387   bf16x3 K 16 0.0357 / 0.0618
+#   decimation 16  bf16   K 16 0.0649 / 0.0896   bf16x3 K 16 0.0952 / 0.1814
+# Nothing was timed under 16 taps, nor at decimations 5 to 7 (taken as 4).
+_DM_MIN_TAPS = {"bf16": {2: 128, 3: 64, 4: 64, 5: 64, 6: 64, 7: 64},
+                "bf16x3": {2: 64}}
+_DM_MIN_TAPS_ELSE = 16
+
+
+def _dm_min_taps(precision: str, decim: int) -> int:
+    """Taps from which ``precision`` at ``decim`` takes the tensor cores."""
+    return _DM_MIN_TAPS[precision].get(decim, _DM_MIN_TAPS_ELSE)
 
 
 def _check_precision(precision: str):
@@ -117,23 +152,6 @@ def fir_cascade_ref(x: torch.Tensor, taps: torch.Tensor, nstages: int,
 
 
 # ------------------------------------------- the tensor-core route, plain
-def _toeplitz_plan(b: int, nout: int, k: int, sms: int = _H100_SMS):
-    """Layout of the tensor-core route for ``b`` rows of ``nout`` outputs and
-    ``k`` taps: the stream is read as rows of 128 samples behind ``lead``
-    zeros, an output row needs ``nh`` consecutive stream rows, and the output
-    rows of a batch row are cut into ``nseg`` segments of ``seg_rows`` (a
-    multiple of the rows a block computes per pass), about two blocks an SM.
-    Returns (nh, seg_rows, nseg, lrows); ``lrows`` is the number of stream
-    rows staged per batch row, zero-filled past the data."""
-    nh = -(-(k + LANE - 1) // LANE)
-    rows = max(1, -(-nout // LANE))
-    passes = -(-rows // _TZ_PASS_ROWS)
-    segs = max(1, min(2 * sms // max(b, 1), passes))
-    seg_rows = -(-passes // segs) * _TZ_PASS_ROWS
-    nseg = -(-rows // seg_rows)
-    return nh, seg_rows, nseg, nseg * seg_rows + nh - 1
-
-
 def toeplitz_taps(taps: torch.Tensor) -> torch.Tensor:
     """The Toeplitz matrix of one tap set for the tensor-core route:
     ``T[j, c] = taps[K-1 - (j - c)]`` where that index is a tap, else 0,
@@ -172,13 +190,67 @@ def fir_toeplitz_ref(x: torch.Tensor, tapsets: torch.Tensor, lead: int,
     return y.reshape(b, r * LANE)[:, :nout]
 
 
-# --------------------------------------------------------------- launches
+def strided_toeplitz_taps(taps: torch.Tensor, decim: int) -> torch.Tensor:
+    """The strided Toeplitz matrix of one tap set for the decimating
+    tensor-core route: ``T[c, o] = taps[K-1 - (c - o*decim)]`` where that
+    index is a tap, else 0, shape (16*ks, 8) with ks = ceil((8*decim + K-1)
+    / 16) k-steps of 16 window positions."""
+    k = taps.shape[-1]
+    ks = -(-(8 * decim + k - 1) // 16)
+    c = torch.arange(16 * ks, device=taps.device)[:, None]
+    o = torch.arange(8, device=taps.device)[None, :]
+    m = c - o * decim
+    valid = (m >= 0) & (m < k)
+    return torch.where(valid, taps.flip(-1)[m.clamp(0, k - 1)],
+                       taps.new_zeros(()))
+
+
+def fir_decim_mma_ref(x: torch.Tensor, tapsets: torch.Tensor, decim: int,
+                      lead: int, nout: int, precision: str) -> torch.Tensor:
+    """Plain PyTorch form of the decimating tensor-core route's own
+    arithmetic (same contract as :func:`fir_tile_ref`): segment s of the
+    stream behind ``lead`` zeros is the window of 16*ks samples at sample
+    ``s*8*decim``, and its 8 outputs are ``sum_kk seg[16*kk:16*kk+16] @
+    T[16*kk:16*kk+16]`` over the strided Toeplitz matrix of the taps,
+    operands rounded to bf16 (bf16x3: hi and lo words, products hi*hi +
+    hi*lo + lo*hi) and summed in float32, k-step by k-step."""
+    b, total = x.shape
+    g, k = tapsets.shape
+    ks = -(-(8 * decim + k - 1) // 16)
+    nseg = max(1, -(-nout // 8))
+    need = (nseg - 1) * 8 * decim + 16 * ks
+    xp = x.new_zeros((b, need), dtype=torch.float32)
+    keep = max(0, min(total, need - lead))
+    xp[:, lead:lead + keep] = x[:, :keep]
+    segs = xp.unfold(-1, 16 * ks, 8 * decim)
+    y = torch.zeros((b, nseg, 8), dtype=torch.float32, device=x.device)
+    for j in range(g):
+        t = strided_toeplitz_taps(tapsets[j], decim)
+        for kk in range(ks):
+            y[j::g] += real_matmul(segs[j::g, :, 16 * kk:16 * kk + 16],
+                                   t[16 * kk:16 * kk + 16], precision)
+    return y.reshape(b, nseg * 8)[:, :nout]
+
+
+# ------------------------------------- shared-memory sizes, as fir_*.cu has them
+def _skew(col: int) -> int:
+    return col + ((col >> 5) << 2)
+
+
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _npl(precision: str) -> int:
+    return 2 if precision == "bf16x3" else 1
+
+
 def _toeplitz_smem(precision: str, k: int) -> int:
-    """Bytes of shared memory one block of the tensor-core routes uses for
-    ``k`` taps (fir_tile.cu's ``toeplitz_smem``): the tap words of each plane
-    in two parity copies, rounded up to 1024, then two stages of swizzled
-    rows, 256 bytes a row and plane."""
-    npl = 2 if precision == "bf16x3" else 1
+    """Bytes of shared memory one block of the decimation-1 tensor-core
+    routes uses for ``k`` taps (fir_tile.cu's ``toeplitz_smem``): the tap
+    words of each plane in two parity copies, rounded up to 1024, then two
+    stages of swizzled rows, 256 bytes a row and plane."""
+    npl = _npl(precision)
     nh = -(-(k + LANE - 1) // LANE)
     tap_words = LANE // 2 * (nh + 1) + 16
     tap_bytes = -(-npl * 2 * 4 * tap_words // 1024) * 1024
@@ -186,84 +258,275 @@ def _toeplitz_smem(precision: str, k: int) -> int:
     return tap_bytes + 2 * npl * 2 * rows * LANE
 
 
+def _tile_smem(precision: str, threads: int, decim: int, kblk: int) -> int:
+    """fir_tile.cu's ``tile_smem``: per plane, ``decim`` rows of taps and of
+    the skewed window of threads * 8 outputs."""
+    q8 = _round(-(-kblk // decim), 8)
+    row = _round(_skew(threads * 8 + q8 + 8), 4)
+    return 4 * _npl(precision) * decim * (q8 + row)
+
+
+def _cascade_smem(precision: str, k: int, nstages: int, tile: int) -> int:
+    """fir_tile.cu's ``cascade_smem``: per plane, the taps and two skewed
+    buffers of the tile, its lookback and the slack."""
+    cols = _round(tile + nstages * (k - 1) + 24, 8)
+    cap = _round(_skew(cols), 4) + 4
+    return 4 * _npl(precision) * (_round(k, 8) + 2 * cap)
+
+
+def _ring_stage_bytes(wl: int, es: int) -> int:
+    per = 16 // es
+    return (wl + 3 * per - 1) // per * 16
+
+
+def _decim_smem(precision: str, es: int, k: int, decim: int, kp: int) -> int:
+    """fir_decim.cu's ``decim_smem``: the ring's stages of raw samples (es
+    bytes each), per plane ``decim`` rows of taps and of the skewed window of
+    1024 / kp outputs, and the 1024 partial sums."""
+    to = _DC_THREADS // kp * 8
+    q8 = _round(-(-k // decim), 8)
+    row = _round(_skew(to + q8 + 8), 4)
+    if decim in (2, 4, 8):
+        while row % (64 // decim) != 32 // decim:
+            row += 4
+    return (_DC_STAGES * _ring_stage_bytes((to - 1) * decim + k, es)
+            + 4 * (_npl(precision) * decim * (q8 + row) + _DC_THREADS * 8))
+
+
+def _decim_mma_smem(precision: str, es: int, k: int, decim: int,
+                    mtb: int) -> int:
+    """fir_decim.cu's ``decim_mma_smem``: the ring's stages, per plane the
+    padded bf16 window of ``mtb`` tiles and two parity copies of the tap
+    words, and the 512 partial sums."""
+    ks = -(-(8 * decim + k - 1) // 16)
+    wb = (16 * mtb - 1) * 8 * decim + 16 * ks
+    plane = _round(wb + ((wb // (8 * decim) + 1) * 8
+                         if decim in (2, 4, 8) else 0), 8)
+    off = (7 * decim + 1) & ~1
+    words = _round((off + 16 * ks + 2) // 2 + 1, 32) + 16
+    return (_DC_STAGES * _ring_stage_bytes(wb, es)
+            + _npl(precision) * (2 * plane + 8 * words) + 4 * _DC_THREADS * 4)
+
+
+# ------------------------------------------------------ routes and plans
+def _blocks_per_row(b: int, tiles: int, sms: int, smem: int) -> int:
+    """Tiles of one row a block of a decimating kernel walks.  A block's
+    phases (load, take out, compute) are serial, so the card overlaps them
+    across the blocks an SM holds (as many as fit its shared memory, at most
+    16 of 128 threads); the grid is about three such fills, evenly loaded.
+    On the WBFM bank (H100, 700 W) 2 to 4 tiles a block ran 5-12% ahead of
+    15."""
+    resident = sms * max(1, min(16, 233472 // (smem + 1024)))
+    tpb = max(1, min(16, b * tiles // (3 * resident)))
+    return -(-tiles // -(-tiles // tpb))     # the same blocks, evenly filled
+
+
+@functools.lru_cache(maxsize=4096)
+def _decim_mma_plan(precision: str, decim: int, k: int, b: int, nout: int,
+                    sms: int = _H100_SMS):
+    """(mtb, to, tpb) for ``fir_decim_mma_fwd``: ``mtb`` tiles of 128
+    outputs a block (each tile's k-steps shared by 4 / mtb warps), ``to``
+    outputs a block kept, ``tpb`` such tiles a block walks.  Two tiles a
+    block where that still gives every SM two blocks (on the WBFM bank, H100
+    at 700 W, bf16x3 from a CUDA graph: 0.042-0.048 ms against 0.045-0.055 at
+    four tiles and 0.045-0.061 at one); a lone chunk is cut into blocks of
+    fewer than 128 outputs so that it fills the card.  None when no block
+    fits shared memory."""
+    for mtb, need in ((2, 2 * sms), (1, 0)):
+        if (b * -(-nout // (128 * mtb)) >= need
+                and _decim_mma_smem(precision, 4, k, decim, mtb) <= _SMEM_OPTIN):
+            break
+    else:
+        return None
+    to = 128 * mtb
+    if mtb == 1 and b * -(-nout // 128) < sms:
+        to = 8 * max(1, min(16, b * nout // (8 * sms)))
+    return mtb, to, _blocks_per_row(
+        b, -(-nout // to), sms, _decim_mma_smem(precision, 4, k, decim, mtb))
+
+
+@functools.lru_cache(maxsize=4096)
+def _decim_fma_plan(precision: str, decim: int, k: int, b: int, nout: int,
+                    sms: int = _H100_SMS):
+    """(kp, tpb) for ``fir_decim_fwd``: ``kp`` groups of threads share the
+    phases of a tile of 1024 / kp outputs, ``tpb`` tiles a block walks.
+    None when the window does not fit shared memory."""
+    for kp in (4, 2, 1):
+        if kp <= decim and _decim_smem(precision, 4, k, decim, kp) <= _SMEM_OPTIN:
+            return kp, _blocks_per_row(
+                b, -(-nout // (1024 // kp)), sms,
+                _decim_smem(precision, 4, k, decim, kp))
+    return None
+
+
+def _route(precision: str, decim: int, k: int, b: int, nout: int,
+           fma: bool = False) -> str:
+    """Which kernel a single-stage call takes: "toeplitz" (decimation 1,
+    bf16 / bf16x3, ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS`` taps), "decim_mma"
+    (decimation > 1, bf16 / bf16x3, from ``_dm_min_taps`` taps), "decim_fma"
+    (decimation > 1 otherwise), "tile" (decimation 1 otherwise, and windows
+    too large for the decimating kernels' shared memory) or "empty" (no
+    output).  ``fma`` forces the CUDA cores, for timing the routes side by
+    side."""
+    if b == 0 or nout == 0:
+        return "empty"
+    tensor = precision != "f32" and not fma
+    if decim == 1:
+        if tensor and _TZ_MIN_TAPS <= k <= _TZ_MAX_TAPS[precision]:
+            return "toeplitz"
+        return "tile"
+    if (tensor and k >= _dm_min_taps(precision, decim)
+            and _decim_mma_plan(precision, decim, k, b, nout) is not None):
+        return "decim_mma"
+    if _decim_fma_plan(precision, decim, k, b, nout) is not None:
+        return "decim_fma"
+    return "tile"
+
+
+class _Plan(NamedTuple):
+    """One launch, ready to make: the entry's name, its ctypes function and
+    every integer argument between the pointers and the stream."""
+    name: str
+    fn: object
+    args: tuple
+    scratch: tuple = ()      # shape of the bf16 scratch fir_toeplitz_fwd takes
+
+
+def _toeplitz_plan(b: int, nout: int, k: int, sms: int = _H100_SMS):
+    """Layout of the decimation-1 tensor-core route for ``b`` rows of
+    ``nout`` outputs and ``k`` taps: the stream is read as rows of 128
+    samples behind ``lead`` zeros, an output row needs ``nh`` consecutive
+    stream rows, and the output rows of a batch row are cut into ``nseg``
+    segments of ``seg_rows`` (a multiple of the rows a block computes per
+    pass), about two blocks an SM.  Returns (nh, seg_rows, nseg, lrows);
+    ``lrows`` is the number of stream rows staged per batch row, zero-filled
+    past the data."""
+    nh = -(-(k + LANE - 1) // LANE)
+    rows = max(1, -(-nout // LANE))
+    passes = -(-rows // _TZ_PASS_ROWS)
+    segs = max(1, min(2 * sms // max(b, 1), passes))
+    seg_rows = -(-passes // segs) * _TZ_PASS_ROWS
+    nseg = -(-rows // seg_rows)
+    return nh, seg_rows, nseg, nseg * seg_rows + nh - 1
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _raw_stream(device) -> int:
-    """The current CUDA stream of ``device`` as the integer a kernel launch
-    takes.  A small chunk's launch is bound by the host, so the wrappers
-    keep off the slower ``torch.cuda.current_stream(...).cuda_stream``."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def _tile_plan(precision: str, decim: int, k: int, b: int, nout: int,
+               sms: int = _H100_SMS):
+    """(threads, kblk) for ``fir_tile_fwd``: bound the window a tile spans,
+    then shrink tiles until the grid fills the card twice over (or the
+    tiles reach one warp)."""
+    threads = _THREADS
+    while threads > 32 and threads * 8 * decim > _MAX_TILE_SPAN:
+        threads //= 2
+    while threads > 32 and b * -(-nout // (threads * 8)) < 2 * sms:
+        threads //= 2
+    kblk = min(k, _KBLK)
+    if _tile_smem(precision, threads, decim, kblk) > _SMEM_OPTIN:
+        raise ValueError(f"decimation {decim} needs a window larger than "
+                         f"shared memory")
+    return threads, kblk
+
+
+def _toeplitz_launch(lib, b, total, g, k, lead, nout, precision, sms):
+    """The launch of ``fir_toeplitz_fwd`` and its bf16 scratch."""
+    nh, seg_rows, nseg, lrows = _toeplitz_plan(b, nout, k, sms)
+    assert seg_rows % lib.fir_toeplitz_rows_per_pass() == 0
+    return _Plan("fir_toeplitz_fwd", lib.fir_toeplitz_fwd,
+                 (b, total, g, k, lead, nout, _PRECISION_CODE[precision],
+                  seg_rows, nseg, lrows), (_npl(precision), b, lrows * LANE))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(b: int, total: int, g: int, k: int, decim: int, lead: int,
+                 nout: int, precision: str, index: int, fma: bool = False):
+    """The launch of one single-stage call, computed once per shape: the
+    route, the kernel's launch parameters and its shared-memory check.
+    ``index`` is the CUDA device's.  None when there is nothing to launch."""
+    from grtpu_torch.ops._build import library
+
+    lib = library()
+    sms = _sm_count(index)
+    code = _PRECISION_CODE[precision]
+    route = _route(precision, decim, k, b, nout, fma)
+    if route == "empty":
+        return None
+    if route == "toeplitz":
+        return _toeplitz_launch(lib, b, total, g, k, lead, nout, precision, sms)
+    if route == "decim_mma":
+        plan = _decim_mma_plan(precision, decim, k, b, nout, sms)
+        return _Plan("fir_decim_mma_fwd", lib.fir_decim_mma_fwd,
+                     (b, total, g, k, decim, lead, nout, code) + plan)
+    if route == "decim_fma":
+        plan = _decim_fma_plan(precision, decim, k, b, nout, sms)
+        return _Plan("fir_decim_fwd", lib.fir_decim_fwd,
+                     (b, total, g, k, decim, lead, nout, code) + plan)
+    plan = _tile_plan(precision, decim, k, b, nout, sms)
+    return _Plan("fir_tile_fwd", lib.fir_tile_fwd,
+                 (b, total, g, k, decim, lead, nout, code) + plan)
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the integer a kernel
+    launch takes.  A small chunk's launch is bound by the host, so the
+    wrappers keep off the slower ``torch.cuda.current_stream(...)``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _check(err: int, name: str):
+    if err:
+        from grtpu_torch.ops._build import library
+
+        raise RuntimeError(f"{name} launch failed: "
+                           + library().fir_error_string(err).decode())
+    launches[name] += 1
+
+
+def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False,
+                 _plan=None):
+    """Launch the single-stage FIR on the kernel :func:`_route` names
+    (``_fma`` forces the CUDA cores, ``_plan`` another plan than
+    :func:`_launch_plan`'s, both for timing choices side by side).  x: (B,
+    total) contiguous; tapsets: (K,) or (G, K) float32 contiguous on x's
+    device."""
+    b, total = x.shape
+    g, k = (1, tapsets.shape[0]) if tapsets.ndim == 1 else tapsets.shape
+    index = x.device.index
+    x_bf16 = x.dtype == torch.bfloat16
+    plan = _plan or _launch_plan(b, total, g, k, decim, lead, nout, precision,
+                                 index, _fma)
+    y = torch.empty((b, nout), dtype=torch.float32, device=x.device)
+    if plan is None:
+        return y
+    args = [x.data_ptr(), int(x_bf16), tapsets.data_ptr()]
+    if plan.scratch:
+        scratch = torch.empty(plan.scratch, dtype=torch.bfloat16,
+                              device=x.device)
+        args.append(scratch.data_ptr())
+    args.append(y.data_ptr())
+    if index == torch._C._cuda_getDevice():
+        err = plan.fn(*args, *plan.args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = plan.fn(*args, *plan.args, _raw_stream(index))
+    _check(err, plan.name)
+    return y
 
 
 def _launch_toeplitz(x, tapsets, lead, nout, precision):
+    """The decimation-1 tensor-core route whatever the tap count (the routes
+    side by side around ``_TZ_MIN_TAPS``)."""
     from grtpu_torch.ops._build import library
 
-    lib = library()
     b, total = x.shape
     g, k = tapsets.shape
-    nh, seg_rows, nseg, lrows = _toeplitz_plan(b, nout, k, _sm_count(x.device))
-    assert seg_rows % lib.fir_toeplitz_rows_per_pass() == 0
-    planes = 2 if precision == "bf16x3" else 1
-    scratch = torch.empty((planes, b, lrows * LANE), dtype=torch.bfloat16,
-                          device=x.device)
-    y = torch.empty((b, nout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = _raw_stream(x.device)
-        err = lib.fir_toeplitz_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), tapsets.data_ptr(),
-            scratch.data_ptr(), y.data_ptr(), b, total, g, k, lead, nout,
-            _PRECISION_CODE[precision], seg_rows, nseg, lrows, stream)
-    if err:
-        raise RuntimeError("fir_toeplitz_fwd launch failed: "
-                           + lib.fir_error_string(err).decode())
-    launches["fir_toeplitz_fwd"] += 1
-    return y
-
-
-def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False):
-    """Launch the single-stage FIR: the tensor-core route for bf16 and bf16x3
-    at decimation 1 and ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS`` taps (unless
-    ``_fma`` forces the FMA route, for timing the two side by side), else the
-    FMA route."""
-    from grtpu_torch.ops._build import library
-
-    lib = library()
-    b, total = x.shape
-    g, k = tapsets.shape
-    code = _PRECISION_CODE[precision]
-    if (decim == 1 and precision != "f32" and not _fma and nout and b
-            and _TZ_MIN_TAPS <= k <= _TZ_MAX_TAPS[precision]):
-        return _launch_toeplitz(x, tapsets, lead, nout, precision)
-    opt = lib.fir_tile_outputs_per_thread()
-    # bound the window a tile spans, then shrink tiles until the grid fills
-    # the card twice over (or the tiles reach one warp)
-    threads = _THREADS
-    while threads > 32 and threads * opt * decim > _MAX_TILE_SPAN:
-        threads //= 2
-    while threads > 32 and b * -(-nout // (threads * opt)) < 2 * _sm_count(
-            x.device):
-        threads //= 2
-    kblk = min(k, _KBLK)
-    if lib.fir_tile_smem(code, threads, decim, kblk) > _SMEM_OPTIN:
-        raise ValueError(f"decimation {decim} needs a window larger than "
-                         f"shared memory")
-    y = torch.empty((b, nout), dtype=torch.float32, device=x.device)
-    if nout == 0 or b == 0:
-        return y
-    with torch.cuda.device(x.device):
-        stream = _raw_stream(x.device)
-        err = lib.fir_tile_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), tapsets.data_ptr(),
-            y.data_ptr(), b, total, g, k, decim, lead, nout, code, threads,
-            kblk, stream)
-    if err:
-        raise RuntimeError("fir_tile_fwd launch failed: "
-                           + lib.fir_error_string(err).decode())
-    launches["fir_tile_fwd"] += 1
-    return y
+    plan = _toeplitz_launch(library(), b, total, g, k, lead, nout, precision,
+                            _sm_count(x.device.index))
+    return _launch_tile(x, tapsets, 1, lead, nout, precision, _plan=plan)
 
 
 def _cascade_mma_tile(n: int, k: int, nstages: int) -> int:
@@ -275,44 +538,68 @@ def _cascade_mma_tile(n: int, k: int, nstages: int) -> int:
     return max(0, min(tile, -(-n // LANE) * LANE))
 
 
-def _launch_cascade(x, taps, nstages, precision, _fma=False):
+@functools.lru_cache(maxsize=4096)
+def _cascade_plan(n: int, k: int, nstages: int, precision: str, b: int = 16,
+                  sms: int = _H100_SMS):
+    """(tile, threads) of the cascade's FMA route.  Every tile recomputes its
+    ``nstages*(k-1)`` lookback, about half of it a stage, so longer tiles
+    waste less; but the grid runs in waves of as many blocks as the card
+    holds, and a last wave that is nearly empty wastes more.  Of the tiles
+    (multiples of 1024) whose two buffers fit shared memory, take the one
+    with the largest kept share of the work times filled share of the
+    waves; 1024 threads from 8192 outputs a tile (a stage's groups of 8
+    outputs come to two or three rounds), fewer below."""
+    halo = nstages * (k - 1)
+    best = None
+    for tile in range(1024, 32768 + 1, 1024):
+        smem = _cascade_smem(precision, k, nstages, tile)
+        if smem > _SMEM_OPTIN:
+            break
+        threads = 1024 if tile >= 8192 else 512 if tile >= 4096 else 256
+        resident = sms * max(1, min(233472 // (smem + 1024), 2048 // threads))
+        blocks = b * -(-n // tile)
+        score = (tile / (tile + halo / 2)
+                 * blocks / (-(-blocks // resident) * resident))
+        if best is None or score >= best[0]:
+            best = (score, tile, threads)
+    if best is None:
+        raise ValueError(f"{nstages} stages of {k} taps do not fit in "
+                         f"shared memory")
+    _, tile, threads = best
+    if tile >= n:
+        tile = -(-n // 256) * 256
+        threads = min(threads, 256 if tile < 4096 else 512)
+    return tile, threads
+
+
+def _launch_cascade(x, taps, nstages, precision, _fma=False, _plan=None):
     """Launch the cascade: the tensor-core route for bf16 and bf16x3 (unless
     ``_fma`` forces the FMA route, for timing the two side by side, or the
-    taps or the lookback do not fit), else the FMA route."""
+    taps or the lookback do not fit), else the FMA route (``_plan``: another
+    (tile, threads) than :func:`_cascade_plan`'s)."""
     from grtpu_torch.ops._build import library
 
     lib = library()
     b, n = x.shape
     k = taps.shape[-1]
     code = _PRECISION_CODE[precision]
+    index = x.device.index
     tile = 0 if precision == "f32" or _fma else _cascade_mma_tile(n, k, nstages)
     mma = tile > 0 and k <= _TZ_MAX_TAPS[precision]
-    if not mma:
-        # the largest tile whose S*(K-1) lookback fits shared memory: the
-        # lookback is recomputed by every tile, so longer tiles waste less
-        for tile in _CASCADE_TILES:
-            if lib.fir_cascade_smem(code, k, nstages, tile) <= _SMEM_OPTIN:
-                break
-        else:
-            raise ValueError(f"{nstages} stages of {k} taps do not fit in "
-                             f"shared memory")
-        tile = min(tile, -(-n // 256) * 256)
     y = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = _raw_stream(x.device)
+    with torch.cuda.device(index):
+        stream = _raw_stream(index)
         if mma:
             err = lib.fir_cascade_mma_fwd(
                 x.data_ptr(), taps.data_ptr(), y.data_ptr(), b, n, k, nstages,
                 tile, code, stream)
         else:
+            tile, threads = _plan or _cascade_plan(
+                n, k, nstages, precision, b, _sm_count(index))
             err = lib.fir_cascade_fwd(
                 x.data_ptr(), taps.data_ptr(), y.data_ptr(), b, n, k, nstages,
-                tile, code, _THREADS, stream)
-    name = "fir_cascade_mma_fwd" if mma else "fir_cascade_fwd"
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.fir_error_string(err).decode())
-    launches[name] += 1
+                tile, code, threads, stream)
+    _check(err, "fir_cascade_mma_fwd" if mma else "fir_cascade_fwd")
     return y
 
 
@@ -323,7 +610,7 @@ def _device_kind(x: torch.Tensor) -> str:
 
 
 def _tile(x, taps, decim, lead, nout, precision):
-    """Run fir_tile_fwd on CUDA tensors, its twin on CPU tensors."""
+    """Run the single-stage kernel on CUDA tensors, its twin on CPU tensors."""
     _check_precision(precision)
     if x.dtype == torch.bfloat16:
         if precision != "bf16":
@@ -331,10 +618,13 @@ def _tile(x, taps, decim, lead, nout, precision):
                              "(the split-word lo plane needs the f32 residual)")
     elif x.dtype != torch.float32:
         raise TypeError(f"expected a float32 or bfloat16 stream, got {x.dtype}")
-    tapsets = _tapsets(taps, x.device)
     if _device_kind(x) == "cpu":
-        return fir_tile_ref(x, tapsets, decim, lead, nout, precision)
-    return _launch_tile(x.contiguous(), tapsets, decim, lead, nout, precision)
+        return fir_tile_ref(x, _tapsets(taps, x.device), decim, lead, nout,
+                            precision)
+    if not (isinstance(taps, torch.Tensor) and taps.dtype == torch.float32
+            and taps.device == x.device and taps.is_contiguous()):
+        taps = _tapsets(taps, x.device)
+    return _launch_tile(x.contiguous(), taps, decim, lead, nout, precision)
 
 
 # ------------------------------------------------------------- public API

@@ -357,6 +357,178 @@ class TestToeplitzRoute:
         assert cf._TZ_MAX_TAPS == {"bf16": 20481, "bf16x3": 6145}
 
 
+class TestDecimTensorRoute:
+    """The plain form of the decimating tensor-core route (windows of the
+    stream, 8 outputs apart, against the strided Toeplitz matrix of the
+    taps, k-step by k-step) held against the twin and against grtpu's Pallas
+    kernel in interpret mode."""
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("rows", [1, 4])
+    @pytest.mark.parametrize("k", [33, 155, 193])
+    @pytest.mark.parametrize("d", [2, 4, 8])
+    def test_vs_twin(self, d, k, rows, precision):
+        """An output count that is no multiple of 8, a lead, and row b on
+        tap set b % G (two sets where there are four rows)."""
+        rng = np.random.RandomState(1000 * d + k + rows)
+        g = 2 if rows == 4 else 1
+        ts = T((rng.randn(g, k) / np.sqrt(k)).astype(np.float32))
+        for lead, nout in ((0, 8 * 37 + 5), (k // 2, 61)):
+            x = T(rng.randn(rows, nout * d + k - 1 - lead).astype(np.float32))
+            got = cf.fir_decim_mma_ref(x, ts, d, lead, nout, precision)
+            ref = cf.fir_tile_ref(x, ts, d, lead, nout, precision)
+            assert got.shape == (rows, nout)
+            assert rel(got.numpy(), ref.numpy()) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("k", [33, 155, 193])
+    @pytest.mark.parametrize("d", [2, 4, 8])
+    def test_vs_pallas_fir_decim(self, d, k, precision):
+        rng = np.random.RandomState(2000 * d + k)
+        for rows in (1, 4):
+            x = rng.randn(rows, 256 * d + k - 1).astype(np.float32)
+            taps = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
+            ref = np.asarray(jpf.fir_decim(jnp.asarray(x), taps, d,
+                                           interpret=True,
+                                           precision=precision))
+            got = cf.fir_decim_mma_ref(T(x), T(taps)[None], d, 0, 256,
+                                       precision).numpy()
+            assert rel(got, ref) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("d,k", [(2, 33), (4, 193), (8, 155)])
+    def test_vs_pallas_fir_decim_c(self, d, k, precision):
+        """The complex stream's two planes as extra rows."""
+        rng = np.random.RandomState(3000 * d + k)
+        n = 128 * d
+        x = (rng.randn(2, n + k - 1)
+             + 1j * rng.randn(2, n + k - 1)).astype(np.complex64)
+        taps = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
+        ref = np.asarray(jpf.fir_decim_c(jnp.asarray(x), taps, d,
+                                         interpret=True, precision=precision))
+        planes = T(np.concatenate([x.real, x.imag]))
+        y = cf.fir_decim_mma_ref(planes, T(taps)[None], d, 0, 128,
+                                 precision).numpy()
+        assert rel(y[:2] + 1j * y[2:], ref) < TOL[precision]
+
+    def test_short_stream_and_bf16_resident_input(self):
+        """A stream shorter than one window reads zeros past its end, and a
+        bfloat16 stream gives what the float32 stream gives at bf16."""
+        rng = np.random.RandomState(41)
+        x = T(rng.randn(2, 100).astype(np.float32))
+        ts = T((rng.randn(1, 64) * 0.1).astype(np.float32))
+        got = cf.fir_decim_mma_ref(x, ts, 8, 500, 50, "bf16x3")
+        ref = cf.fir_tile_ref(x, ts, 8, 500, 50, "bf16x3")
+        assert rel(got.numpy(), ref.numpy()) < TOL["bf16x3"]
+        y32 = cf.fir_decim_mma_ref(x, ts, 4, 0, 9, "bf16")
+        y16 = cf.fir_decim_mma_ref(x.to(torch.bfloat16), ts, 4, 0, 9, "bf16")
+        assert torch.equal(y32, y16)
+
+    @pytest.mark.parametrize("k,d", [(1, 2), (33, 2), (193, 8), (155, 8),
+                                     (40, 3), (4097, 16)])
+    def test_strided_toeplitz_taps(self, k, d):
+        """T[c, o] = taps[K-1 - (c - o*d)], zero where that is no tap."""
+        taps = np.random.RandomState(k).randn(k).astype(np.float32)
+        t = cf.strided_toeplitz_taps(T(taps), d).numpy()
+        ks = -(-(8 * d + k - 1) // 16)
+        assert t.shape == (16 * ks, 8)
+        for c, o in ((0, 0), (k - 1, 0), (k, 0), (7 * d, 7), (7 * d - 1, 7),
+                     (7 * d + k - 1, 7), (16 * ks - 1, 7), (d, 1), (5, 3)):
+            m = c - o * d
+            want = taps[k - 1 - m] if 0 <= m < k else 0.0
+            assert t[c, o] == want, (c, o)
+
+
+class TestRoutesAndPlans:
+    """Which kernel a single-stage call takes, and with what launch."""
+
+    @pytest.mark.parametrize("precision,d,k,b,nout,want", [
+        ("f32", 1, 4097, 16, 1 << 20, "tile"),
+        ("bf16x3", 1, 4097, 16, 1 << 20, "toeplitz"),
+        ("bf16", 1, 4097, 16, 1 << 20, "toeplitz"),
+        ("bf16", 1, cf._TZ_MIN_TAPS - 1, 16, 1 << 20, "tile"),
+        ("bf16", 1, cf._TZ_MIN_TAPS, 16, 1 << 20, "toeplitz"),
+        ("bf16x3", 1, cf._TZ_MAX_TAPS["bf16x3"], 1, 1000, "toeplitz"),
+        ("bf16x3", 1, cf._TZ_MAX_TAPS["bf16x3"] + 1, 1, 1000, "tile"),
+        ("f32", 8, 193, 1, 8192, "decim_fma"),
+        ("bf16x3", 8, 193, 1, 8192, "decim_mma"),
+        ("bf16", 8, 155, 64, 1 << 15, "decim_mma"),
+        ("bf16x3", 2, 64, 4, 4096, "decim_mma"),
+        ("bf16x3", 2, 63, 4, 4096, "decim_fma"),
+        ("bf16", 2, 128, 4, 4096, "decim_mma"),
+        ("bf16", 2, 127, 4, 4096, "decim_fma"),
+        ("bf16", 4, 64, 4, 4096, "decim_mma"),
+        ("bf16", 4, 63, 4, 4096, "decim_fma"),
+        ("bf16x3", 3, 16, 4, 4096, "decim_mma"),
+        ("bf16", 8, 16, 4, 4096, "decim_mma"),
+        ("bf16", 8, 15, 4, 4096, "decim_fma"),
+        ("bf16x3", 16, 15, 4, 4096, "decim_fma"),
+        ("bf16x3", 3, 2100, 2, 500, "decim_mma"),
+        ("f32", 3, 60000, 2, 500, "tile"),
+        ("bf16x3", 8, 193, 1, 0, "empty"),
+        ("f32", 1, 5, 0, 100, "empty"),
+    ])
+    def test_route(self, precision, d, k, b, nout, want):
+        assert cf._route(precision, d, k, b, nout) == want
+
+    @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+    def test_forced_fma_keeps_off_the_tensor_cores(self, precision):
+        assert cf._route(precision, 8, 193, 1, 8192, fma=True) == "decim_fma"
+        assert cf._route(precision, 1, 4097, 16, 1 << 20, fma=True) == "tile"
+
+    def test_chunk_fills_the_card(self):
+        """One row of 8,192 outputs (a 65,536-sample chunk at decimation 8)
+        becomes at least one block an SM."""
+        mtb, to, tpb = cf._decim_mma_plan("bf16x3", 8, 193, 1, 8192)
+        assert mtb == 1 and tpb == 1 and to % 8 == 0 and to <= 128
+        assert -(-8192 // to) >= cf._H100_SMS
+
+    @pytest.mark.parametrize("b,nout", [(64, 1 << 15), (128, 1 << 15),
+                                        (1, 8192), (3, 1000), (1, 5)])
+    def test_mma_plan_covers_the_outputs(self, b, nout):
+        mtb, to, tpb = cf._decim_mma_plan("bf16x3", 8, 155, b, nout)
+        assert mtb in (1, 2, 4) and 1 <= to <= 128 * mtb and tpb >= 1
+        assert to == 128 * mtb or mtb == 1
+        kp, tpb = cf._decim_fma_plan("f32", 8, 155, b, nout)
+        assert kp in (1, 2, 4) and tpb >= 1
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("d", [2, 3, 4, 8, 16])
+    @pytest.mark.parametrize("k", [16, 193, 4097])
+    def test_plans_fit_shared_memory(self, k, d, precision):
+        """At decimations up to 16 and up to 4097 taps both decimating
+        kernels have a plan whose block fits the 232,448 bytes a block may
+        opt into."""
+        for b, nout in ((1, 8192), (64, 1 << 15)):
+            kp, tpb = cf._decim_fma_plan(precision, d, k, b, nout)
+            assert cf._decim_smem(precision, 4, k, d, kp) <= 232448
+            if precision != "f32":
+                mtb, to, tpb = cf._decim_mma_plan(precision, d, k, b, nout)
+                assert cf._decim_mma_smem(precision, 4, k, d, mtb) <= 232448
+
+    def test_plans_are_kept(self):
+        """The same key gives the same plan object, computed once."""
+        for fn, args in ((cf._decim_mma_plan, ("bf16x3", 8, 193, 1, 8192)),
+                         (cf._decim_fma_plan, ("f32", 8, 155, 64, 1 << 15)),
+                         (cf._cascade_plan, (1 << 20, 256, 16, "f32"))):
+            fn.cache_clear()
+            first = fn(*args)
+            assert fn(*args) is first
+            assert fn.cache_info().hits == 1 and fn.cache_info().misses == 1
+        assert hasattr(cf._launch_plan, "cache_info")
+
+    @pytest.mark.parametrize("n,k,s,precision,want", [
+        (1 << 20, 256, 16, "f32", (21504, 1024)),
+        (1 << 20, 256, 16, "bf16x3", (8192, 1024)),
+        (128, 5, 2, "f32", (256, 256)),
+        (1 << 14, 4097, 4, "f32", (3072, 256)),
+    ])
+    def test_cascade_plan(self, n, k, s, precision, want):
+        tile, threads = cf._cascade_plan(n, k, s, precision)
+        assert (tile, threads) == want
+        assert cf._cascade_smem(precision, k, s, tile) <= 232448
+
+
 class TestFirFilterKernelImpl:
     """FirFilter(impl='kernel') inside a graph equals grtpu's
     FirFilter(impl='pallas') (interpret mode via monkeypatch, as in

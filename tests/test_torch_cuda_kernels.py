@@ -181,12 +181,166 @@ def test_bf16_resident_bit_identical(dev, k):
 
 def test_launch_counts(dev):
     before = dict(cf.launches)
-    cf.fir_decim(randn(dev, 1, 800 + 30), randn(dev, 31), 8)
+    cf.fir_decim(randn(dev, 1, 800 + 32), randn(dev, 33), 8)
     cf.fir_cascade(randn(dev, 1, 512), randn(dev, 9), 3)
     cf.fir_decim_cc(torch.complex(randn(dev, 1, 64 + 8), randn(dev, 1, 72)),
                     torch.complex(randn(dev, 9), randn(dev, 9)), 2)
-    assert cf.launches["fir_tile_fwd"] == before["fir_tile_fwd"] + 3
+    cf.fir_long(randn(dev, 100 + 8), randn(dev, 9), precision="f32")
+    after = {n: cf.launches[n] - before[n] for n in cf.launches}
+    assert after == {"fir_tile_fwd": 1, "fir_toeplitz_fwd": 0,
+                     "fir_decim_fwd": 2, "fir_decim_mma_fwd": 1,
+                     "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0}
+
+
+ODD_DECIM_CASES = [
+    # k, d, b, nout, lead, g, total (None: the exact window)
+    (193, 8, 1, 8192, 0, 1, None),       # the WBFM chunk
+    (155, 8, 5, 1000, 0, 1, None),       # nout no multiple of any tile
+    (155, 8, 3, 4097, 77, 1, None),      # a lead, several tiles a block
+    (40, 3, 6, 600, 39, 3, None),        # odd decimation, three tap sets
+    (33, 4, 4, 5001, 7, 2, None),
+    (31, 2, 2, 777, 0, 1, None),
+    (64, 8, 2, 50, 500, 1, 100),         # the stream ends inside the window
+    (2100, 3, 2, 500, 0, 1, None),       # long taps at an odd decimation
+    (4097, 16, 2, 300, 0, 1, None),
+    (17, 5, 1, 33, 0, 1, None),
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+@pytest.mark.parametrize("k,d,b,nout,lead,g,total", ODD_DECIM_CASES)
+def test_decim_fma_route(dev, precision, k, d, b, nout, lead, g, total):
+    """fir_decim_fwd (forced for the bf16 modes) against the twin at odd
+    sizes, and bit-identical from a bf16-resident stream."""
+    total = total or nout * d + k - 1 - lead
+    x = randn(dev, b, total, seed=k)
+    ts = randn(dev, g, k, seed=k + 1) / np.sqrt(k)
+    before = dict(cf.launches)
+    got = cf._launch_tile(x, ts, d, lead, nout, precision, _fma=True)
+    torch.cuda.synchronize()
+    assert cf.launches["fir_decim_fwd"] == before["fir_decim_fwd"] + 1
+    ref = cf.fir_tile_ref(x, ts, d, lead, nout, precision)
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) < TOL[precision]
+    if precision == "bf16":
+        got16 = cf._launch_tile(x.to(torch.bfloat16), ts, d, lead, nout,
+                                precision, _fma=True)
+        assert torch.equal(got, got16)
+
+
+def mma_route(x, ts, d, lead, nout, precision):
+    """fir_decim_mma_fwd whatever the tap count."""
+    from grtpu_torch.ops._build import library
+
+    b, total = x.shape
+    g, k = ts.shape
+    plan = cf._Plan("fir_decim_mma_fwd", library().fir_decim_mma_fwd,
+                    (b, total, g, k, d, lead, nout,
+                     cf._PRECISION_CODE[precision])
+                    + cf._decim_mma_plan(precision, d, k, b, nout))
+    return cf._launch_tile(x, ts, d, lead, nout, precision, _plan=plan)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("k,d,b,nout,lead,g,total", ODD_DECIM_CASES)
+def test_decim_tensor_core_route(dev, precision, k, d, b, nout, lead, g,
+                                 total):
+    """fir_decim_mma_fwd against the twin and its own plain form at odd
+    sizes, and bit-identical from a bf16-resident stream."""
+    total = total or nout * d + k - 1 - lead
+    x = randn(dev, b, total, seed=k)
+    ts = randn(dev, g, k, seed=k + 1) / np.sqrt(k)
+    before = dict(cf.launches)
+    got = mma_route(x, ts, d, lead, nout, precision)
+    torch.cuda.synchronize()
+    assert cf.launches["fir_decim_mma_fwd"] == before["fir_decim_mma_fwd"] + 1
+    assert cf.launches["fir_decim_fwd"] == before["fir_decim_fwd"]
+    if cf._route(precision, d, k, b, nout) == "decim_mma":   # the call's own
+        assert torch.equal(got, cf._tile(x, ts, d, lead, nout, precision))
+        assert cf.launches["fir_decim_mma_fwd"] == \
+            before["fir_decim_mma_fwd"] + 2
+    ref = cf.fir_tile_ref(x, ts, d, lead, nout, precision)
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) < TOL[precision]
+    plain = cf.fir_decim_mma_ref(x, ts, d, lead, nout, precision)
+    assert rel(got, plain) < TOL[precision]
+    if precision == "bf16":
+        got16 = mma_route(x.to(torch.bfloat16), ts, d, lead, nout, precision)
+        assert torch.equal(got, got16)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("mtb,to,tpb", [(1, 8, 1), (1, 56, 3), (1, 128, 16),
+                                        (2, 256, 2), (4, 512, 5)])
+def test_decim_tensor_core_plans(dev, precision, mtb, to, tpb):
+    """Every block shape of the tensor-core route gives the same outputs."""
+    from grtpu_torch.ops._build import library
+
+    k, d, b, nout = 155, 8, 3, 3000
+    x = randn(dev, b, nout * d + k - 1, seed=1)
+    ts = randn(dev, 1, k, seed=2) / np.sqrt(k)
+    plan = cf._Plan("fir_decim_mma_fwd", library().fir_decim_mma_fwd,
+                    (b, x.shape[1], 1, k, d, 0, nout,
+                     cf._PRECISION_CODE[precision], mtb, to, tpb))
+    got = cf._launch_tile(x, ts, d, 0, nout, precision, _plan=plan)
+    ref = cf.fir_tile_ref(x, ts, d, 0, nout, precision)
+    assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+def test_decim_misaligned_stream(dev, precision):
+    """A stream whose rows start at any 4-byte address: the load ring keeps
+    the shift to the 16-byte boundary below each window."""
+    k, d, nout = 155, 8, 1000
+    total = nout * d + k - 1
+    flat = randn(dev, 2 * total + 3, seed=5)
+    ts = randn(dev, 1, k, seed=6) / 12
+    for off in (1, 2, 3):
+        x = flat[off:off + 2 * total].view(2, total)
+        got = cf.fir_decim(x, ts, d, precision=precision)
+        ref = cf.fir_tile_ref(x, ts, d, 0, nout, precision)
+        assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("s", [2, 16])
+@pytest.mark.parametrize("k", [5, 256])
+@pytest.mark.parametrize("n", [128, 1 << 16])
+def test_cascade_f32(dev, s, k, n):
+    x = randn(dev, 3, n, seed=s)
+    taps = randn(dev, k, seed=k) * (0.05 if k == 256 else 0.3)
+    before = dict(cf.launches)
+    got = cf.fir_cascade(x, taps, s, precision="f32")
     assert cf.launches["fir_cascade_fwd"] == before["fir_cascade_fwd"] + 1
+    ref = cf.fir_cascade_ref(x, taps, s, "f32")
+    assert torch.isfinite(got).all()
+    assert rel(got, ref) < TOL["f32"]
+    for plan in ((1024, 256), (8192, 512), (16384, 1024)):
+        if cf._cascade_smem("f32", k, s, plan[0]) <= cf._SMEM_OPTIN:
+            forced = cf._launch_cascade(x, taps, s, "f32", _plan=plan)
+            assert rel(forced, ref) < TOL["f32"]
+
+
+def test_shared_memory_sizes_match_the_library(dev):
+    """The wrapper plans with its own copies of the kernels' shared-memory
+    formulas; they are the library's."""
+    from grtpu_torch.ops._build import library
+
+    lib = library()
+    for precision, code in cf._PRECISION_CODE.items():
+        for k, d in ((155, 8), (193, 8), (33, 2), (4097, 16), (7, 5), (200, 4),
+                     (40, 3)):
+            for v in (1, 2, 4):
+                for es in (4, 2):
+                    assert lib.fir_decim_smem(code, es == 2, k, d, v) == \
+                        cf._decim_smem(precision, es, k, d, v)
+                    assert lib.fir_decim_mma_smem(code, es == 2, k, d, v) == \
+                        cf._decim_mma_smem(precision, es, k, d, v)
+        for k, s, t in ((256, 16, 16384), (5, 2, 256), (64, 3, 8192)):
+            assert lib.fir_cascade_smem(code, k, s, t) == \
+                cf._cascade_smem(precision, k, s, t)
+        for th, d, kb in ((256, 1, 2048), (32, 8, 193), (64, 3, 2048)):
+            assert lib.fir_tile_smem(code, th, d, kb) == \
+                cf._tile_smem(precision, th, d, kb)
 
 
 def test_wbfm_kernel_graph_matches_plain(dev):
