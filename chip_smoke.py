@@ -48,7 +48,44 @@ Phases (each raises on failure; nothing is caught):
         FourLevelSlicer, chunk 4096), symbol error rate < 0.02 after the
         acquisition settle; and Fsk4Modem(chunked=True).demodulate on the
         same stream.  Prints both rates in symbols/s.
-  6. Print one JSON line of per-kernel results and, last, the device line.
+  6. Drive config #1 of BASELINE.json in full, and the FM family:
+     a. a wideband capture made with numpy from a seed (2^23 complex64
+        samples at 2.048 MS/s: an FM station, 1 kHz tone at 75 kHz deviation,
+        at +400 kHz, a stronger one at -300 kHz, noise) through
+        FreqXlatingFirFilter(8, low_pass(1, 2.048e6, 100e3, 50e3), 400e3) ->
+        WfmRcv(256e3, 8, impl="kernel") in StreamExecutor, chunk 524,288
+        (65,536 at the quad rate: the main path's kernel row).  Kernel
+        launch counts are zeroed before and read after: fir_decim_mma_fwd
+        must have been launched.  Gates: audio SNR > 30 dB against the
+        de-emphasized tone; kernel path within 1e-4 of the impl="mxu" path;
+        the rotator's carried phase equal to a numpy float32 model of the
+        recurrence within 1e-3 rad (its distance from the exact closed form
+        is printed: float32 cannot hold it at this chunk, see PERF.md).
+        Prints Msamples/s of input.
+     b. NbfmTx(16e3, 64e3) -> NbfmRx(16e3, 64e3) on 2^20 audio samples of a
+        1 kHz tone (tests/test_fm_models.py:89-116's gates); WfmRcvPll on a
+        stereo composite (19 kHz pilot, 700 Hz left, 2200 Hz right), 2^21
+        samples at 256 kS/s (tests/test_pager_misc.py:407-440's gates).
+  7. Drive config #2, the polyphase filterbank (no hand kernel: cuBLAS
+     float32 matmuls with TF32 off, cuFFT):
+     a. channelize, 64 channels, 768-tap prototype, 2^20 samples + history
+        (benchmarks/channelizer_bench.py:37): f32, bf16x3, bf16, and
+        oversample 2 in f32 and bf16.  Gates: a tone in channel c comes out
+        in channel c with > 95% of the power; bf16x3 within 1e-4 of f32
+        relative to the peak, bf16 > 45 dB SNR; the card within 1e-5 of the
+        CPU on a 2^14 prefix.  ms per call (CUDA events, median of 5).
+     b. arb_resample, 64 rows x 2^17 at 3/2 and 64 x 132,300 at 160/147
+        (benchmarks/resampler_bench.py:38-39): tone frequency within 1e-4,
+        amplitude within 0.05; ms per call.
+     c. PfbChannelizer(64) and PfbArbResampler(160/147), each a Graph through
+        StreamExecutor over 2^22 samples: chunked output within 1e-5 of the
+        one-call op; channelize -> synthesize round trip at 16 channels
+        (NMSE < 0.1 at the best lag).
+     d. the sequential loops, host-bound by construction: PfbClockSync on a
+        20,000-sample BPSK stream through the variable-rate executor and
+        pfb_clock_sync_chunked on the same stream (decisions equal to the
+        CPU run's); Agc and PllRefout over 8,192 samples.
+  8. Print one JSON line of per-kernel results and, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 grtpu_torch package beside this script.
@@ -119,6 +156,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` calls, each timed by
+    CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def in_turns(a, b, reps_a: int, reps_b: int, rounds: int = 1):
@@ -668,17 +723,7 @@ def run_dmr_bank(torch):
     if not worst < DMR_GATE:
         fail(f"DMR bank: a burst came back with payload BER {worst:.4f}")
 
-    times = []
-    modem._burst_bank_fn(x)
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        modem._burst_bank_fn(x)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = float(np.median(times))
+    ms = median_ms(lambda: modem._burst_bank_fn(x))
     rate = DMR_CHANNELS * DMR_SAMPLES / ms / 1e3
     print(f"DMR bank {DMR_CHANNELS} ch x {DMR_SAMPLES}: {ms:.3f} ms per call (median of "
           f"5, CUDA events) = {rate:.2f} Msamples/s aggregate", flush=True)
@@ -752,6 +797,490 @@ def run_dmr_stream(torch):
     return vr_rate, ck_rate
 
 
+# ------------------------------------------------- phases 6 and 7 (configs 1, 2)
+CAPTURE_FS = 2.048e6
+CAPTURE_SAMPLES = 1 << 23
+CAPTURE_CHUNK = 524288
+TUNE_HZ = 400e3
+TUNER_DECIM = 8
+NBFM_SAMPLES = 1 << 20
+STEREO_SAMPLES = 1 << 21
+PFB_CHANNELS = 64            # benchmarks/channelizer_bench.py:37
+PFB_SAMPLES = 1 << 20
+ARB_ROWS = 64                # benchmarks/resampler_bench.py:38-39
+ARB_CASES = (("3/2", (3, 2), 1 << 17), ("160/147", (160, 147), 147 * 900))
+PFB_STREAM = 1 << 22
+SYNC_SAMPLES = 20000
+LOOP_SAMPLES = 8192
+
+
+def chain_graph(torch, chain, in_dtype, out_dtypes=None):
+    """input pad -> chain -> one output pad per output port of the last
+    block (or per dtype in ``out_dtypes``, for a hierarchical last block)."""
+    from grtpu_torch import Graph
+    from grtpu_torch.runtime.block import Port
+
+    g = Graph()
+    pin = g.add_input(Port(in_dtype))
+    ports = ([Port(dt) for dt in out_dtypes] if out_dtypes
+             else list(chain[-1].out_ports))
+    if len(ports) == 1:
+        g.connect(pin, *chain, g.add_output(ports[0]))
+    else:
+        g.connect(pin, *chain)
+        for i, port in enumerate(ports):
+            g.connect((chain[-1], i), g.add_output(port))
+    return g
+
+
+def bit_accuracy(decisions, bits, settle=200, max_shift=32):
+    """Share of +-1 decisions equal to the sent bits, best over the
+    alignment shift and the sign (a BPSK loop locks at either)."""
+    best = 0.0
+    for off in range(max_shift):
+        m = min(len(decisions) - off, len(bits)) - 2 * settle
+        if m <= 0:
+            break
+        d = decisions[off + settle: off + settle + m]
+        b = bits[settle: settle + m]
+        best = max(best, float((d == b).mean()), float((d == -b).mean()))
+    return best
+
+
+def wideband_capture(seed=6):
+    """2^23 complex64 samples at 2.048 MS/s: the wanted station (1 kHz tone,
+    75 kHz deviation) at +400 kHz, a stronger one (2.5 kHz tone) at -300 kHz,
+    and noise.  Returns (capture, message at the capture rate)."""
+    n = CAPTURE_SAMPLES
+    t = np.arange(n) / CAPTURE_FS
+    msg = 0.5 * np.sin(2 * np.pi * 1000.0 * t)
+    k = 2 * np.pi * 75e3 / CAPTURE_FS
+    x = np.exp(1j * (2 * np.pi * TUNE_HZ * t + np.cumsum(k * msg)))
+    other = 0.5 * np.sin(2 * np.pi * 2500.0 * t)
+    x += 3.0 * np.exp(1j * (2 * np.pi * -300e3 * t + np.cumsum(k * other)))
+    rng = np.random.RandomState(seed)
+    x = x.astype(np.complex64)
+    x.real += 0.01 * rng.standard_normal(n).astype(np.float32)
+    x.imag += 0.01 * rng.standard_normal(n).astype(np.float32)
+    return x, msg.astype(np.float32)
+
+
+def run_tuner_wbfm(torch, cf):
+    """Phase 6a: config #1 in full, tuner -> WBFM, on the card."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks.filter import FreqXlatingFirFilter
+    from grtpu_torch.models.fm import FmDeemph, WfmRcv
+    from grtpu_torch.utils import firdes
+
+    taps = firdes.low_pass(1.0, CAPTURE_FS, 100e3, 50e3)
+
+    def executor(impl):
+        tuner = FreqXlatingFirFilter(TUNER_DECIM, taps, TUNE_HZ, CAPTURE_FS)
+        g = chain_graph(torch, [tuner, WfmRcv(QUAD_RATE, AUDIO_DECIM, impl=impl)],
+                        torch.complex64, [torch.float32])
+        return StreamExecutor(g, chunk_size=CAPTURE_CHUNK, device="cuda"), tuner
+
+    t0 = time.perf_counter()
+    x, msg = wideband_capture()
+    x_dev = torch.from_numpy(x).to("cuda")
+    print(f"capture: {CAPTURE_SAMPLES} samples at {CAPTURE_FS / 1e6:g} MS/s "
+          f"made in {time.perf_counter() - t0:.1f} s ({len(taps)}-tap tuner, "
+          f"decimation {TUNER_DECIM})", flush=True)
+    for impl in ("kernel", "mxu"):     # warm-up in executors of their own
+        executor(impl)[0].run(x_dev[:2 * CAPTURE_CHUNK])
+    torch.cuda.synchronize()
+
+    for name in cf.launches:
+        cf.launches[name] = 0
+    audio, rate, tuners, exs = {}, {}, {}, {}
+    for impl in ("kernel", "mxu"):
+        exs[impl], tuners[impl] = executor(impl)
+        t0 = time.perf_counter()
+        y = exs[impl].run(x_dev)
+        torch.cuda.synchronize()
+        rate[impl] = CAPTURE_SAMPLES / (time.perf_counter() - t0) / 1e6
+        audio[impl] = y.cpu().numpy()
+    counts = dict(cf.launches)
+    for impl in ("kernel", "mxu"):
+        print(f"tuner -> WBFM ({impl}): {CAPTURE_SAMPLES} input samples at "
+              f"{rate[impl]:.2f} Msamples/s of input (chunk {CAPTURE_CHUNK})")
+    print(f"tuner path launches: {counts}", flush=True)
+    nchunks = CAPTURE_SAMPLES // CAPTURE_CHUNK
+    if counts["fir_decim_mma_fwd"] < nchunks:
+        fail(f"tuner path launched fir_decim_mma_fwd {counts['fir_decim_mma_fwd']} "
+             f"times, expected {nchunks}")
+
+    total_decim = TUNER_DECIM * AUDIO_DECIM
+    y = audio["kernel"]
+    if y.shape != (CAPTURE_SAMPLES // total_decim,) or not np.isfinite(y).all():
+        fail(f"tuner -> WBFM output shape {y.shape} or non-finite values")
+    g = chain_graph(torch, [FmDeemph(QUAD_RATE / AUDIO_DECIM, 75e-6)],
+                    torch.float32, [torch.float32])
+    # the tuner's group delay, (len(taps) - 1) / 2 capture samples, is not a
+    # whole audio sample: sample the reference message on the delayed grid,
+    # so that the alignment below is left a whole number of audio samples
+    first = -((len(taps) - 1) // 2) % total_decim
+    ref = StreamExecutor(g, chunk_size=8192, device="cuda").run(
+        msg[first::total_decim]).cpu().numpy()
+    settle = 512
+    r, e = align(ref[settle:-settle], y[settle:-settle])
+    s = snr_db(r.astype(np.float64), e.astype(np.float64))
+    print(f"tuner -> WBFM recovered-audio SNR: {s:.2f} dB (gate 30 dB)")
+    if not s > 30.0:
+        fail(f"tuner -> WBFM audio SNR {s:.2f} dB <= 30 dB")
+    diff = np.abs(y - audio["mxu"]).max() / np.abs(audio["mxu"]).max()
+    print(f"tuner -> WBFM kernel path vs mxu path: max_rel_err={diff:.3e} "
+          f"(tol {TOL['bf16x3']:g})")
+    if not diff <= TOL["bf16x3"]:
+        fail("tuner -> WBFM kernel path disagrees with the mxu path")
+
+    # the rotator's carried phase: the float32 recurrence, modelled in numpy
+    tuner = tuners["kernel"]
+    got = float(exs["kernel"].state["blocks"][str(tuner.uid)])
+    step = np.float32(tuner.phase_inc * TUNER_DECIM
+                      * (CAPTURE_CHUNK // TUNER_DECIM))
+    model = np.float32(0.0)
+    for _ in range(nchunks):
+        model = np.float32(np.remainder(np.float32(model + step),
+                                        np.float32(2 * np.pi)))
+    exact = math.remainder(tuner.phase_inc * CAPTURE_SAMPLES, 2 * math.pi)
+    off_model = abs(math.remainder(got - float(model), 2 * math.pi))
+    off_exact = abs(math.remainder(got - exact, 2 * math.pi))
+    half_ulp = float(np.spacing(np.float32(abs(float(step))))) / 2
+    print(f"rotator phase after {nchunks} chunks: {got:.6f} rad; float32 model "
+          f"{float(model):.6f} (off by {off_model:.2e}, gate 1e-3); exact "
+          f"closed form {exact:.6f} (off by {off_exact:.2e}; half a float32 "
+          f"step at {abs(float(step)):.0f} rad is {half_ulp:.2e})")
+    if not off_model <= 1e-3:
+        fail("the rotator's carried phase left its float32 recurrence")
+    if not off_exact <= nchunks * half_ulp:
+        fail("the rotator's carried phase drifted past float32's bound")
+    return rate, counts
+
+
+def run_fm_family(torch):
+    """Phase 6b: the NBFM loopback and the stereo receiver on the card."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.models.fm import NbfmRx, NbfmTx, WfmRcvPll
+
+    n = NBFM_SAMPLES
+    msg = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(n) / 16e3)
+           ).astype(np.float32)
+    g = chain_graph(torch, [NbfmTx(16e3, 64e3), NbfmRx(16e3, 64e3)],
+                    torch.float32, [torch.float32])
+    ex = StreamExecutor(g, chunk_size=65536, device="cuda")
+    t0 = time.perf_counter()
+    audio = ex.run(msg).cpu().numpy()
+    dt = time.perf_counter() - t0
+    seg = audio[2048:2048 + 8192]
+    spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+    peak = np.argmax(spec) * 16e3 / len(seg)
+    inband = spec[np.arange(len(spec)) * 16e3 / len(seg) < 3000].sum() / spec.sum()
+    print(f"NbfmTx -> NbfmRx: {n} audio samples in {dt:.3f} s = "
+          f"{n / dt / 1e6:.2f} Msamples/s; peak {peak:.1f} Hz (1000 +- 10), "
+          f"in-band share {inband:.4f} (gate 0.95)", flush=True)
+    if audio.shape != (n,) or abs(peak - 1000) >= 10 or not inband > 0.95:
+        fail("NBFM loopback did not return the tone")
+
+    n = STEREO_SAMPLES
+    t = np.arange(n) / QUAD_RATE
+    left = 0.4 * np.sin(2 * np.pi * 700 * t)
+    right = 0.4 * np.sin(2 * np.pi * 2200 * t)
+    composite = ((left + right) / 2 + 0.1 * np.sin(2 * np.pi * 19000 * t)
+                 + (left - right) * np.sin(2 * np.pi * 38000 * t) / 2)
+    iq = np.exp(1j * np.cumsum(2 * np.pi * 75e3 / QUAD_RATE * composite)
+                ).astype(np.complex64)
+    g = chain_graph(torch, [WfmRcvPll(QUAD_RATE, AUDIO_DECIM)],
+                    torch.complex64, [torch.float32, torch.float32])
+    ex = StreamExecutor(g, chunk_size=65536, device="cuda")
+    t0 = time.perf_counter()
+    L, R = (v.cpu().numpy() for v in ex.run(iq))
+    dt = time.perf_counter() - t0
+
+    def band_power(sig, f):
+        spec = np.abs(np.fft.rfft(sig * np.hanning(len(sig)))) ** 2
+        freqs = np.fft.rfftfreq(len(sig), AUDIO_DECIM / QUAD_RATE)
+        return spec[(freqs > f - 100) & (freqs < f + 100)].sum()
+
+    sep_l = band_power(L[2000:], 700) / band_power(L[2000:], 2200)
+    sep_r = band_power(R[2000:], 2200) / band_power(R[2000:], 700)
+    print(f"WfmRcvPll: {n} samples in {dt:.3f} s = {n / dt / 1e6:.2f} "
+          f"Msamples/s; left 700/2200 Hz power {sep_l:.1f}x, right 2200/700 Hz "
+          f"{sep_r:.1f}x (gate 4x each)", flush=True)
+    if L.shape != (n // AUDIO_DECIM,) or not (sep_l > 4 and sep_r > 4):
+        fail("WfmRcvPll did not separate left from right")
+
+
+def run_channelizer(torch):
+    """Phase 7a: channelize at the benchmark's shape, every mode."""
+    from grtpu_torch.ops import pfb
+
+    N = PFB_CHANNELS
+    proto = pfb.design_channelizer_taps(N, 12)
+    kp = -(-len(proto) // N)
+    hist = kp * N
+    rng = np.random.RandomState(7)
+    x = (rng.standard_normal(PFB_SAMPLES + hist)
+         + 1j * rng.standard_normal(PFB_SAMPLES + hist)).astype(np.complex64)
+    x_dev = torch.from_numpy(x).to("cuda")
+
+    c, delta = 37, 0.012
+    tone = np.exp(2j * np.pi * (c / N + delta / N)
+                  * np.arange(PFB_SAMPLES + hist)).astype(np.complex64)
+    y = pfb.channelize(torch.from_numpy(tone).to("cuda"), proto, N)
+    powers = (y[kp * 2:].abs() ** 2).mean(dim=0).cpu().numpy()
+    share = powers[c] / powers.sum()
+    print(f"channelize {N} ch, {len(proto)} taps: a tone in channel {c} comes "
+          f"out in channel {int(np.argmax(powers))} with {share:.4f} of the "
+          f"power (gate 0.95)", flush=True)
+    if int(np.argmax(powers)) != c or not share > 0.95:
+        fail("channelize routed the tone to the wrong channel")
+
+    outs, rates = {}, {}
+    for os_, precision in ((1, "f32"), (1, "bf16x3"), (1, "bf16"),
+                           (2, "f32"), (2, "bf16")):
+        key = f"os{os_} {precision}"
+        outs[key] = pfb.channelize(x_dev, proto, N, os_, precision)
+        ms = median_ms(lambda: pfb.channelize(x_dev, proto, N, os_, precision))
+        rates[key] = PFB_SAMPLES / ms / 1e3
+        if outs[key].shape != (os_ * PFB_SAMPLES // N, N) \
+                or not torch.isfinite(outs[key].abs()).all():
+            fail(f"channelize {key}: shape {tuple(outs[key].shape)} or "
+                 f"non-finite values")
+        small = 1 << 14
+        cpu = pfb.channelize(torch.from_numpy(x[:small + hist]), proto, N,
+                             os_, precision)
+        _, err = errors(outs[key][:cpu.shape[0]].cpu(), cpu)
+        print(f"channelize {key}: {ms:.3f} ms per call (median of 5, CUDA "
+              f"events) = {rates[key]:.1f} Msamples/s of input; card vs CPU "
+              f"on a 2^14 prefix max_rel_err={err:.3e} (tol 1e-5)", flush=True)
+        if not err <= 1e-5:
+            fail(f"channelize {key} on the card disagrees with the CPU")
+    for os_ in (1, 2):
+        ref = outs[f"os{os_} f32"]
+        peak = ref.abs().max().item()
+        if os_ == 1:
+            e3 = (outs["os1 bf16x3"] - ref).abs().max().item() / peak
+            print(f"channelize bf16x3 vs f32: max_err/peak={e3:.3e} (tol 1e-4)")
+            if not e3 <= 1e-4:
+                fail("channelize bf16x3 is not within 1e-4 of f32")
+        d = outs[f"os{os_} bf16"] - ref
+        snr = 10 * math.log10((ref.abs() ** 2).sum().item()
+                              / (d.abs() ** 2).sum().item())
+        print(f"channelize os{os_} bf16 vs f32: {snr:.2f} dB (gate 45 dB)")
+        if not snr > 45.0:
+            fail(f"channelize os{os_} bf16 SNR {snr:.2f} dB <= 45 dB")
+    return rates
+
+
+def run_arb_resampler(torch):
+    """Phase 7b: arb_resample at the benchmark's two rates, 64 rows."""
+    from fractions import Fraction
+
+    from grtpu_torch.ops import pfb
+
+    rates = {}
+    for label, (p, q), n in ARB_CASES:
+        rate = Fraction(p, q)
+        taps = pfb.design_arb_resampler_taps(float(rate), 32)
+        kp = -(-len(taps) // 32)
+        f = 0.05
+        ph0 = np.linspace(0, 2 * np.pi, ARB_ROWS, endpoint=False)[:, None]
+        x = np.exp(1j * (2 * np.pi * f * np.arange(n + kp - 1)[None, :] + ph0)
+                   ).astype(np.complex64)
+        x_dev = torch.from_numpy(x).to("cuda")
+        y = pfb.arb_resample(x_dev, taps, rate, 32)
+        ms = median_ms(lambda: pfb.arb_resample(x_dev, taps, rate, 32))
+        rates[label] = ARB_ROWS * n / ms / 1e3
+        if y.shape != (ARB_ROWS, int(n * rate)):
+            fail(f"arb_resample {label}: shape {tuple(y.shape)}")
+        seg = y[:, 200:-200]
+        dphi = torch.angle(seg[:, 1:] * torch.conj(seg[:, :-1])).mean(dim=1) \
+            / (2 * math.pi)
+        f_err = (dphi - f / float(rate)).abs().max().item()
+        a_err = (seg.abs().mean(dim=1) - 1.0).abs().max().item()
+        cpu = pfb.arb_resample(torch.from_numpy(x[:2, :q * 64 + kp - 1]), taps,
+                               rate, 32)
+        dev = pfb.arb_resample(x_dev[:2, :q * 64 + kp - 1], taps, rate, 32)
+        _, err = errors(dev.cpu(), cpu)
+        print(f"arb_resample {label}, {ARB_ROWS} rows x {n}: {ms:.3f} ms per "
+              f"call (median of 5) = {rates[label]:.1f} Msamples/s of input; "
+              f"tone frequency off by {f_err:.2e} (gate 1e-4), amplitude by "
+              f"{a_err:.4f} (gate 0.05); card vs CPU max_rel_err={err:.3e}",
+              flush=True)
+        if not (f_err < 1e-4 and a_err < 0.05 and err <= 1e-5):
+            fail(f"arb_resample {label} failed its fidelity gates")
+    return rates
+
+
+def run_pfb_graphs(torch):
+    """Phase 7c: the filterbank blocks through the executor against the
+    one-call ops (the history contract), and the analysis -> synthesis
+    round trip."""
+    from fractions import Fraction
+
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks.pfb import PfbArbResampler, PfbChannelizer
+    from grtpu_torch.ops import pfb
+    from grtpu_torch.ops.fir import interp_fir_filter
+    from grtpu_torch.utils import firdes
+
+    n = PFB_STREAM
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                         .astype(np.complex64)).to("cuda")
+
+    blk = PfbChannelizer(PFB_CHANNELS)
+    g = chain_graph(torch, [blk], torch.complex64)
+    ex = StreamExecutor(g, chunk_size=1 << 18, device="cuda")
+    t0 = time.perf_counter()
+    y = ex.run(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hist = blk.history - 1
+    whole = pfb.channelize(torch.cat([x.new_zeros(hist), x]), blk.taps,
+                           PFB_CHANNELS)
+    _, err = errors(y, whole)
+    print(f"PfbChannelizer({PFB_CHANNELS}) graph: {n} samples in {dt:.3f} s = "
+          f"{n / dt / 1e6:.1f} Msamples/s (chunk {1 << 18}); chunked vs "
+          f"one-call max_rel_err={err:.3e} (tol 1e-5)", flush=True)
+    if y.shape != (n // PFB_CHANNELS, PFB_CHANNELS) or not err <= 1e-5:
+        fail("PfbChannelizer through the executor differs from channelize")
+
+    blk = PfbArbResampler(160 / 147)
+    chunk = 147 * 2048
+    g = chain_graph(torch, [blk], torch.complex64, [torch.complex64])
+    ex = StreamExecutor(g, chunk_size=chunk, device="cuda")
+    t0 = time.perf_counter()
+    y = ex.run(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    padded = -(-n // 147) * 147
+    xin = torch.cat([x.new_zeros(blk.history - 1), x, x.new_zeros(padded - n)])
+    whole = pfb.arb_resample(xin, blk.taps, Fraction(160, 147), 32)[:y.shape[0]]
+    _, err = errors(y, whole)
+    print(f"PfbArbResampler(160/147) graph: {n} samples in {dt:.3f} s = "
+          f"{n / dt / 1e6:.1f} Msamples/s (chunk {chunk}); chunked vs one-call "
+          f"max_rel_err={err:.3e} (tol 1e-5)", flush=True)
+    if y.shape[0] != int(n * Fraction(160, 147)) or not err <= 1e-5:
+        fail("PfbArbResampler through the executor differs from arb_resample")
+
+    # analysis -> synthesis at 16 channels (tests/test_pfb.py:59-103's gate)
+    N = 16
+    proto = firdes.root_raised_cosine(1.0, N, 1.0, 0.2, 14 * N)
+    proto = (proto / proto.sum()).astype(np.float32)
+    kp = -(-len(proto) // N)
+    m, hist = 1 << 16, kp * N
+    base = (rng.standard_normal(m // 2 + hist // 2 + 64)
+            + 1j * rng.standard_normal(m // 2 + hist // 2 + 64))
+    up_taps = firdes.low_pass(2.0, 2.0, 0.4, 0.2)
+    xb = torch.cat([torch.zeros(-(-len(up_taps) // 2) - 1, dtype=torch.complex64),
+                    torch.from_numpy(base.astype(np.complex64))]).to("cuda")
+    sig = interp_fir_filter(xb, up_taps, 2)[: m + hist]
+    ych = torch.cat([sig.new_zeros((kp - 1, N)), pfb.channelize(sig, proto, N)])
+    rec = pfb.synthesize(ych, proto).cpu().numpy()
+    xin = sig.cpu().numpy()[hist:]
+    best = (1e9, 0)
+    for lag in range(0, 3 * kp * N):
+        k = min(len(rec) - lag, len(xin)) - 256
+        a, b = xin[256: 256 + k], rec[lag + 256: lag + 256 + k]
+        gain = np.vdot(b, a) / max(np.vdot(b, b).real, 1e-12)
+        nmse = (np.abs(a - gain * b) ** 2).mean() / (np.abs(a) ** 2).mean()
+        best = min(best, (float(nmse), lag))
+    print(f"channelize -> synthesize, {N} channels, {m} samples: NMSE "
+          f"{best[0]:.4f} at lag {best[1]} (gate 0.1)", flush=True)
+    if not best[0] < 0.1:
+        fail("channelize -> synthesize did not reconstruct the input")
+
+
+def run_sequential_loops(torch):
+    """Phase 7d: the per-symbol and per-sample recursions on the card.  Each
+    is a Python loop of one-element kernels: the rates are the host's."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks import analog
+    from grtpu_torch.blocks import pfb as pfb_blocks
+    from grtpu_torch.ops.fir import interp_fir_filter
+    from grtpu_torch.utils import firdes
+
+    sps, nfilts, W, chunk = 4, 32, 32, 64
+    rng = np.random.RandomState(9)
+    nsym = SYNC_SAMPLES // sps
+    bits = rng.randint(0, 2, nsym) * 2 - 1
+    tx = firdes.root_raised_cosine(sps, sps, 1.0, 0.35, 11 * sps)
+    xh = torch.cat([torch.zeros(-(-len(tx) // sps) - 1, dtype=torch.complex64),
+                    torch.from_numpy((bits + 0j).astype(np.complex64))])
+    wave = interp_fir_filter(xh, tx, sps).numpy()
+    t = np.arange(len(wave))
+    wave = (np.interp(t - 1.3, t, wave.real) + 0.02 * rng.standard_normal(len(t))
+            + 1j * 0.02 * rng.standard_normal(len(t))).astype(np.complex64)
+    mf = firdes.root_raised_cosine(nfilts, nfilts * sps, 1.0, 0.35,
+                                   11 * sps * nfilts)
+    kp = -(-len(mf) // nfilts)
+
+    def sync_graph():
+        blk = pfb_blocks.PfbClockSync(float(sps), 2 * np.pi / 100, mf, nfilts)
+        return chain_graph(torch, [blk], torch.complex64, [torch.complex64])
+
+    got = {}
+    for device in ("cpu", "cuda"):
+        ex = StreamExecutor(sync_graph(), chunk_size=4000, device=device)
+        t0 = time.perf_counter()
+        got[device] = ex.run(wave).cpu().numpy()
+        dt = time.perf_counter() - t0
+        if device == "cuda":
+            print(f"PfbClockSync, variable-rate executor: {SYNC_SAMPLES} "
+                  f"samples -> {len(got[device])} symbols in {dt:.2f} s = "
+                  f"{len(got[device]) / dt:.1f} symbols/s (chunk 4000, "
+                  f"host-bound loop)", flush=True)
+    dec = {d: np.sign(v.real) for d, v in got.items()}
+    acc = bit_accuracy(dec["cuda"], bits)
+    same = dec["cuda"].shape == dec["cpu"].shape \
+        and bool((dec["cuda"] == dec["cpu"]).all())
+    print(f"PfbClockSync: decisions equal to the CPU run: {same}; bits "
+          f"recovered {acc:.4f} (gate 0.98)", flush=True)
+    if not same or not acc > 0.98:
+        fail("PfbClockSync on the card disagrees with the CPU or lost the bits")
+
+    xw = np.concatenate([np.zeros(W, np.complex64), wave])
+    L = sps + 2 * W + kp
+    T = (len(xw) - L) // sps + 1
+    if T % chunk == 0:      # stay off the exact-multiple case (ROADMAP.md)
+        xw = xw[:-sps]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        st = pfb_blocks.pfb_clock_sync_windowed_init(nfilts, device=device)
+        xd = torch.from_numpy(xw).to(device)
+        t0 = time.perf_counter()
+        y, _ = pfb_blocks.pfb_clock_sync_chunked(
+            xd, st, sps, mf, nfilts, 2 * np.pi / 100, W=W, chunk=chunk)
+        outs[device] = y.cpu().numpy()
+        dt = time.perf_counter() - t0
+    same = bool((np.sign(outs["cuda"].real) == np.sign(outs["cpu"].real)).all())
+    print(f"pfb_clock_sync_chunked: {len(outs['cuda'])} symbols in {dt:.3f} s "
+          f"= {len(outs['cuda']) / dt:.1f} symbols/s; decisions equal to the "
+          f"CPU run: {same}", flush=True)
+    if not same or len(outs["cuda"]) < 0.9 * nsym:
+        fail("pfb_clock_sync_chunked on the card disagrees with the CPU")
+
+    x = (np.exp(1j * (0.2 * np.arange(LOOP_SAMPLES) + 0.7))
+         * (1 + 0.5 * np.sin(np.arange(LOOP_SAMPLES) * 0.01))).astype(np.complex64)
+    for name, make in (("Agc", lambda: analog.Agc(1e-3, 1.0, 0.5)),
+                       ("PllRefout", lambda: analog.PllRefout(0.05, 0.5, -0.5))):
+        ys = {}
+        for device in ("cpu", "cuda"):
+            g = chain_graph(torch, [make()], torch.complex64, [torch.complex64])
+            ex = StreamExecutor(g, chunk_size=LOOP_SAMPLES, device=device)
+            t0 = time.perf_counter()
+            ys[device] = ex.run(x).cpu().numpy()
+            dt = time.perf_counter() - t0
+        err = float(np.abs(ys["cuda"] - ys["cpu"]).max())
+        print(f"{name}: {LOOP_SAMPLES} samples in {dt:.2f} s = "
+              f"{LOOP_SAMPLES / dt:.1f} samples/s (host-bound loop); card vs "
+              f"CPU max_abs_err={err:.3e} (tol 1e-3)", flush=True)
+        if not err <= 1e-3:
+            fail(f"{name} on the card disagrees with the CPU run")
+
+
 def main() -> int:
     import torch
 
@@ -798,7 +1327,18 @@ def main() -> int:
     run_dmr_stream(torch)
     print(f"DMR path launches: {dict(cf.launches)}")
 
-    # phase 6: report, for each kernel the case the main path launches most
+    # phase 6: config #1 in full (tuner -> WBFM) and the FM family; its own
+    # launch counts, zeroed before and read after
+    run_tuner_wbfm(torch, cf)
+    run_fm_family(torch)
+
+    # phase 7: config #2, the polyphase filterbank (no hand kernel)
+    run_channelizer(torch)
+    run_arb_resampler(torch)
+    run_pfb_graphs(torch)
+    run_sequential_loops(torch)
+
+    # phase 8: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),

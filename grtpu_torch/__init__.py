@@ -18,18 +18,25 @@ What changes in the port:
 
 This package imports neither ``jax`` nor ``grtpu``.
 
-Layout (the slices ported so far: WBFM and DMR 4FSK):
+Layout (the slices ported so far: the frequency-translating WBFM receiver
+and the rest of the FM family, the polyphase filterbank, DMR 4FSK):
     grtpu_torch.runtime -- Block protocol, graph builder, time-block executor
                            (fixed rate and the variable-rate FIFO)
-    grtpu_torch.ops     -- FIR substrate (decimating and interpolating), FFT
-                           filter, demod/IIR/control-loop helpers, the MMSE
+    grtpu_torch.ops     -- FIR substrate (decimating, interpolating,
+                           filterbank, frequency-translating), FFT filter,
+                           rotator/NCO/demod/IIR/control-loop helpers, the
+                           polyphase filterbank ops (channelizer,
+                           synthesizer, arbitrary resampler), the MMSE
                            interpolator bank, CUDA kernels
-    grtpu_torch.blocks  -- analog, filter and gengen blocks of the WBFM chain
+    grtpu_torch.blocks  -- analog, convert, filter, gengen, pfb and stream
+                           blocks
     grtpu_torch.digital -- constellations, Costas and M&M loops, the 4FSK /
                            GMSK / PSK modems, their graph blocks
-    grtpu_torch.models  -- the WBFM receiver (WfmRcv, FmDeemph) and the DMR
+    grtpu_torch.models  -- the FM family (WfmRcv, WfmRcvPll, NbfmRx/Tx, WfmTx,
+                           AmDemod, FmDemod, pre/de-emphasis) and the DMR
                            burst layer (DmrReceiver, DmrTransmitter)
-    grtpu_torch.utils   -- firdes tap design (numpy)
+    grtpu_torch.utils   -- firdes and optfir tap design, the Parks-McClellan
+                           engine, engineering notation (numpy)
 """
 
 __version__ = "0.1.0"

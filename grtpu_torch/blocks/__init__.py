@@ -1,1 +1,1 @@
-from grtpu_torch.blocks import analog, filter, gengen
+from grtpu_torch.blocks import analog, convert, filter, gengen, pfb, stream

@@ -1,15 +1,27 @@
-"""Sources, sinks and constant ops (port of part of ``grtpu.blocks.gengen``).
+"""Elementwise / generated ops: the gengen layer (port of
+``grtpu.blocks.gengen``).
 
-Analogs: gr_vector_source_X, gr_vector_sink_X, gr_null_sink,
-gr_add_const_XX, gr_multiply_const_XX.
+Analog of gnuradio-core/src/lib/gengen: add, add_const, sub, multiply,
+multiply_const, divide, and/or/xor/not, integrate, moving_average, argmax,
+max, mute, sample_and_hold, peak_detector, noise_source_X,
+vector_source_X / vector_sink_X, chunks_to_symbols_XX,
+packed_to_unpacked_XX / unpacked_to_packed_XX.
+
+Each op is one dtype-parameterized Block class, with gr-style suffix
+factories (``add_ff``, ``multiply_const_cc``, ...) for API parity.  Lookup
+tables stay host numpy; each block keeps one copy per device it has run on.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from grtpu_torch.runtime.block import Block, Port, torch_dtype
+from grtpu_torch.utils.device import resolve
 
 
 def _scalar(k, dtype: torch.dtype):
@@ -18,6 +30,84 @@ def _scalar(k, dtype: torch.dtype):
     return torch.tensor(k, dtype=dtype).item()
 
 
+def _cached_on(cache: dict, device, host) -> torch.Tensor:
+    """The device copy of a host array, made once per device."""
+    t = cache.get(device)
+    if t is None:
+        t = cache[device] = torch.as_tensor(host).to(device)
+    return t
+
+
+def _msb_first_shifts(m: int, k: int, device) -> torch.Tensor:
+    return torch.arange(m - 1, -1, -1, dtype=torch.int32, device=device) * k
+
+
+# --------------------------------------------------------------------- n-ary
+class _NaryElementwise(Block):
+    """N inputs -> one output, elementwise, stateless."""
+
+    def __init__(self, dtype=torch.float32, nin: int = 2, vlen: int = 1,
+                 name=None):
+        self.in_ports = tuple(Port(dtype, vlen) for _ in range(nin))
+        self.out_ports = (Port(dtype, vlen),)
+        super().__init__(name)
+
+    def apply(self, state, *xs):
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = self._combine(acc, x)
+        return state, acc
+
+    def _combine(self, a, b):
+        raise NotImplementedError
+
+
+class Add(_NaryElementwise):
+    def _combine(self, a, b):
+        return a + b
+
+
+class Sub(_NaryElementwise):
+    def _combine(self, a, b):
+        return a - b
+
+
+class Multiply(_NaryElementwise):
+    def _combine(self, a, b):
+        return a * b
+
+
+class Divide(_NaryElementwise):
+    def _combine(self, a, b):
+        return a / b
+
+
+class And(_NaryElementwise):
+    def _combine(self, a, b):
+        return a & b
+
+
+class Or(_NaryElementwise):
+    def _combine(self, a, b):
+        return a | b
+
+
+class Xor(_NaryElementwise):
+    def _combine(self, a, b):
+        return a ^ b
+
+
+class Not(Block):
+    def __init__(self, dtype=torch.int32, vlen: int = 1, name=None):
+        self.in_ports = (Port(dtype, vlen),)
+        self.out_ports = (Port(dtype, vlen),)
+        super().__init__(name)
+
+    def apply(self, state, x):
+        return state, ~x
+
+
+# ------------------------------------------------------------------- x_const
 class AddConst(Block):
     def __init__(self, k, dtype=torch.float32, vlen: int = 1, name=None):
         self.in_ports = (Port(dtype, vlen),)
@@ -48,6 +138,174 @@ class MultiplyConst(Block):
         self.touch()
 
 
+class AndConst(Block):
+    def __init__(self, k, dtype=torch.uint8, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        super().__init__(name)
+        self.k = int(k)
+
+    def apply(self, state, x):
+        return state, x & self.k
+
+
+# ----------------------------------------------------------------- stateful
+class Integrate(Block):
+    """Decimating integrator: sum groups of ``decim`` samples
+    (gengen gr_integrate_XX)."""
+
+    def __init__(self, decim: int, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        self.decim = decim
+        super().__init__(name)
+
+    def apply(self, state, x):
+        n = x.shape[0]
+        return state, x.reshape(n // self.decim, self.decim).sum(dim=1).to(
+            x.dtype)
+
+
+class MovingAverage(Block):
+    """Sliding-window sum scaled by ``scale`` (gr_moving_average_XX).
+
+    Uses executor-managed history for exact cross-chunk windows; computed as
+    a cumulative-sum difference."""
+
+    def __init__(self, length: int, scale=1, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        self.length = length
+        self.scale = scale
+        self.history = length
+        super().__init__(name)
+
+    def apply(self, state, x):
+        # x has length n + length - 1; output n sliding sums.
+        acc = x if (x.is_floating_point() or x.is_complex()) \
+            else x.to(torch.int64)
+        c = torch.cumsum(acc, dim=0)
+        c = torch.cat([c.new_zeros((1,)), c])
+        win = c[self.length:] - c[:-self.length]
+        return state, (win * self.scale).to(x.dtype)
+
+
+class SampleAndHold(Block):
+    """Output held input value gated by a control stream
+    (gr_sample_and_hold_XX): out[i] = in[i] if ctrl[i] else previous held.
+
+    Closed form of grtpu's scan: each output reads the input at the last
+    index where the control was set (a running maximum over those indices),
+    or the carried value before the first one."""
+
+    def __init__(self, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype), Port(torch.uint8))
+        self.out_ports = (Port(dtype),)
+        super().__init__(name)
+        self._dtype = self.in_ports[0].dtype
+
+    def init_state(self):
+        return torch.zeros((), dtype=self._dtype)
+
+    def apply(self, state, x, ctrl):
+        n = x.shape[0]
+        idx = torch.arange(n, device=x.device)
+        last = torch.cummax(torch.where(ctrl != 0, idx, idx.new_full((), -1)),
+                            dim=0).values
+        y = torch.where(last >= 0, x[last.clamp(min=0)], state.to(x.dtype))
+        return y[-1], y
+
+
+class PeakDetector(Block):
+    """Flag the peak of each burst above a threshold envelope
+    (gr_peak_detector_XX semantics: tracks a running peak between
+    threshold crossings; emits 1 at the peak sample).
+
+    A per-sample recursion (grtpu's ``lax.scan``), run here as a loop of
+    0-d tensor operations on the stream's device in the same float32
+    arithmetic."""
+
+    def __init__(self, threshold_factor_rise=0.25, threshold_factor_fall=0.40,
+                 look_ahead=10, alpha=0.001, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(torch.uint8),)
+        super().__init__(name)
+        self.tfr, self.tff = threshold_factor_rise, threshold_factor_fall
+        self.alpha = alpha
+
+    def init_state(self):
+        # (avg, peak_val, peak_ind_rel, in_burst)
+        return (torch.zeros(()), torch.zeros(()),
+                torch.zeros((), dtype=torch.int32),
+                torch.zeros((), dtype=torch.bool))
+
+    def apply(self, state, x):
+        alpha, tfr, tff = self.alpha, self.tfr, self.tff
+        n = x.shape[0]
+        avg, peak, peak_i, burst = state
+        xs = x.to(torch.float32)
+        idx = torch.arange(n, dtype=torch.int32, device=x.device)
+        zero = xs.new_zeros(())
+        out = torch.zeros((n,), dtype=torch.uint8, device=x.device)
+        one = out.new_ones(())
+        for i in range(n):
+            v = xs[i]
+            avg = (1 - alpha) * avg + alpha * v
+            start = (~burst) & (v > avg * (1 + tfr))
+            burst = burst | start
+            better = burst & (v > peak)
+            peak = torch.where(better | start, v, peak)
+            peak_i = torch.where(better | start, idx[i], peak_i)
+            end = burst & (v < avg * (1 - tff))
+            # a burst that ends flags its peak, by its index in the chunk
+            # the peak was seen in
+            pos = peak_i.clamp(0, n - 1).long()
+            out[pos] = torch.where(end & (peak_i < n), one, out[pos])
+            peak = torch.where(end, zero, peak)
+            burst = burst & (~end)
+        return (avg, peak, peak_i, burst), out
+
+
+class Argmax(Block):
+    """Per-vector argmax (gr_argmax_XX): vlen-vector in, index out."""
+
+    def __init__(self, vlen: int, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype, vlen),)
+        self.out_ports = (Port(torch.int16),)
+        super().__init__(name)
+
+    def apply(self, state, x):
+        return state, torch.argmax(x, dim=-1).to(torch.int16)
+
+
+class Max(Block):
+    """Per-vector max (gr_max_XX)."""
+
+    def __init__(self, vlen: int, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype, vlen),)
+        self.out_ports = (Port(dtype),)
+        super().__init__(name)
+
+    def apply(self, state, x):
+        return state, torch.amax(x, dim=-1)
+
+
+class Mute(Block):
+    def __init__(self, mute: bool = False, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        super().__init__(name)
+        self.muted = mute
+
+    def set_mute(self, m: bool):
+        self.muted = m
+        self.touch()
+
+    def apply(self, state, x):
+        return state, torch.zeros_like(x) if self.muted else x
+
+
+# ----------------------------------------------------------------- sources
 class VectorSource(Block):
     """Repeat (or play once) a fixed vector (gengen gr_vector_source_X)."""
 
@@ -81,6 +339,73 @@ class VectorSource(Block):
         return ((state + n) % m if self.repeat else state + n), y
 
 
+class NullSource(Block):
+    # stateless, so the executor names the device to produce on
+    source_takes_device = True
+
+    def __init__(self, dtype=torch.float32, vlen: int = 1, name=None):
+        self.out_ports = (Port(dtype, vlen),)
+        super().__init__(name)
+
+    def apply(self, state, n: int, device=None):
+        port = self.out_ports[0]
+        return state, torch.zeros(port.chunk_shape(n), dtype=port.dtype,
+                                  device=resolve(device))
+
+
+class NoiseSource(Block):
+    """Gaussian/uniform noise source (gr_noise_source_X + gr_random).
+
+    The samples come from a ``torch.Generator`` made from ``seed`` on the
+    device the block runs on, so a run is reproducible from the seed on a
+    given device.  The carried state is the count of samples drawn; the
+    generator itself is not part of a checkpoint (grtpu carries a JAX PRNG
+    key instead: the two packages' noise streams differ, and a checkpoint of
+    a graph that holds a NoiseSource does not move between them).
+    """
+
+    def __init__(self, kind: str = "gaussian", amplitude: float = 1.0,
+                 seed: int = 0, dtype=torch.float32, name=None):
+        self.out_ports = (Port(dtype),)
+        super().__init__(name)
+        if kind not in ("gaussian", "uniform"):
+            raise ValueError(f"unknown noise kind {kind}")
+        self.kind = kind
+        self.amplitude = amplitude
+        self.seed = seed
+        self._dtype = self.out_ports[0].dtype
+        self._gens = {}
+
+    def init_state(self):
+        self._gens = {}  # a new run starts the stream from the seed again
+        return torch.zeros((), dtype=torch.int64)
+
+    def _generator(self, device) -> torch.Generator:
+        g = self._gens.get(device)
+        if g is None:
+            g = self._gens[device] = torch.Generator(device=device)
+            g.manual_seed(int(self.seed))
+        return g
+
+    def apply(self, state, n: int):
+        dev = state.device
+        gen = self._generator(dev)
+        shape = (n, 2) if self._dtype.is_complex else (n,)
+        if self.kind == "gaussian":
+            r = torch.randn(shape, generator=gen, device=dev)
+            amp = (self.amplitude / np.sqrt(2) if self._dtype.is_complex
+                   else self.amplitude)
+        else:
+            r = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+            amp = self.amplitude
+        if self._dtype.is_complex:
+            y = torch.complex(r[:, 0], r[:, 1]) * amp
+        else:
+            y = r * amp
+        return state + n, y.to(self._dtype)
+
+
+# ------------------------------------------------------------------- sinks
 class VectorSink(Block):
     """Collect everything (gr_vector_sink_X).
 
@@ -110,3 +435,154 @@ class NullSink(Block):
 
     def apply(self, state, x):
         return state, ()
+
+
+class ProbeSignal(Block):
+    """Expose the most recent sample to the host (gr_probe_signal_f)."""
+
+    def __init__(self, dtype=torch.float32, name=None):
+        self.in_ports = (Port(dtype),)
+        self.out_ports = ()
+        super().__init__(name)
+        self.captured = None
+
+    def apply(self, state, x):
+        return state, ()
+
+    def level(self):
+        return None if self.captured is None \
+            else self.captured[0][-1].cpu().numpy()[()]
+
+
+# ------------------------------------------------------- symbol/bit packing
+class ChunksToSymbols(Block):
+    """Map integer chunks to symbol-table entries
+    (gengen gr_chunks_to_symbols_XX: out[i] = table[in[i]])."""
+
+    def __init__(self, symbol_table, in_dtype=torch.uint8,
+                 out_dtype=torch.complex64, dimension: int = 1, name=None):
+        self.in_ports = (Port(in_dtype),)
+        self.out_ports = (Port(out_dtype),)
+        self.interp = dimension
+        super().__init__(name)
+        self.table = torch.as_tensor(np.asarray(symbol_table)).to(
+            self.out_ports[0].dtype).numpy()
+        self.dimension = dimension
+        self._table_dev = {}
+
+    def apply(self, state, x):
+        idx = x.long()
+        table = _cached_on(self._table_dev, x.device, self.table)
+        if self.dimension == 1:
+            return state, table[idx]
+        return state, table.reshape(-1, self.dimension)[idx].reshape(-1)
+
+
+class PackedToUnpacked(Block):
+    """Explode packed bytes into k-bit chunks, MSB first
+    (gr_packed_to_unpacked_XX with GR_MSB_FIRST)."""
+
+    def __init__(self, bits_per_chunk: int = 1, dtype=torch.uint8, name=None):
+        assert 8 % bits_per_chunk == 0, "bits_per_chunk must divide 8"
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        self.interp = 8 // bits_per_chunk
+        super().__init__(name)
+        self.k = bits_per_chunk
+
+    def apply(self, state, x):
+        k, m = self.k, self.interp
+        shifts = _msb_first_shifts(m, k, x.device)
+        out = (x[:, None].to(torch.int32) >> shifts[None, :]) & ((1 << k) - 1)
+        return state, out.reshape(-1).to(x.dtype)
+
+
+class UnpackedToPacked(Block):
+    """Pack k-bit chunks into bytes, MSB first (gr_unpacked_to_packed_XX)."""
+
+    def __init__(self, bits_per_chunk: int = 1, dtype=torch.uint8, name=None):
+        assert 8 % bits_per_chunk == 0
+        self.in_ports = (Port(dtype),)
+        self.out_ports = (Port(dtype),)
+        self.decim = 8 // bits_per_chunk
+        super().__init__(name)
+        self.k = bits_per_chunk
+
+    def apply(self, state, x):
+        k, m = self.k, self.decim
+        g = x.reshape(-1, m).to(torch.int32)
+        shifts = _msb_first_shifts(m, k, x.device)
+        packed = ((g & ((1 << k) - 1)) << shifts[None, :]).sum(dim=1)
+        return state, packed.to(x.dtype)
+
+
+class PackKBits(Block):
+    """gr_pack_k_bits_bb: pack k input bits (LSB of each byte) per output."""
+
+    def __init__(self, k: int, name=None):
+        self.in_ports = (Port(torch.uint8),)
+        self.out_ports = (Port(torch.uint8),)
+        self.decim = k
+        super().__init__(name)
+        self.k = k
+
+    def apply(self, state, x):
+        g = x.reshape(-1, self.k).to(torch.int32) & 1
+        shifts = _msb_first_shifts(self.k, 1, x.device)
+        return state, (g << shifts[None, :]).sum(dim=1).to(torch.uint8)
+
+
+class UnpackKBits(Block):
+    """gr_unpack_k_bits_bb: one bit per output byte, MSB first within k."""
+
+    def __init__(self, k: int, name=None):
+        self.in_ports = (Port(torch.uint8),)
+        self.out_ports = (Port(torch.uint8),)
+        self.interp = k
+        super().__init__(name)
+        self.k = k
+
+    def apply(self, state, x):
+        shifts = _msb_first_shifts(self.k, 1, x.device)
+        out = (x[:, None].to(torch.int32) >> shifts[None, :]) & 1
+        return state, out.reshape(-1).to(torch.uint8)
+
+
+class MapBB(Block):
+    """gr_map_bb: out = table[in]."""
+
+    def __init__(self, table: Sequence[int], name=None):
+        self.in_ports = (Port(torch.uint8),)
+        self.out_ports = (Port(torch.uint8),)
+        super().__init__(name)
+        self.table = np.asarray(table, np.uint8)
+        self._table_dev = {}
+
+    def apply(self, state, x):
+        return state, _cached_on(self._table_dev, x.device,
+                                 self.table)[x.long()]
+
+
+# ---------------------------------------------------------- suffix aliases
+def _suffix_factories():
+    """gr-style typed factories: add_ff, multiply_cc, ... (API parity)."""
+    suffix_dtype = {
+        "b": torch.uint8, "s": torch.int16, "i": torch.int32,
+        "f": torch.float32, "c": torch.complex64,
+    }
+    out = {}
+    for opname, cls in [("add", Add), ("sub", Sub), ("multiply", Multiply),
+                        ("divide", Divide), ("add_const", AddConst),
+                        ("multiply_const", MultiplyConst)]:
+        for sfx, dt in suffix_dtype.items():
+            out[f"{opname}_{sfx}{sfx}"] = functools.partial(cls, dtype=dt)
+    for sfx, dt in suffix_dtype.items():
+        out[f"vector_source_{sfx}"] = functools.partial(VectorSource, dtype=dt)
+        out[f"vector_sink_{sfx}"] = functools.partial(VectorSink, dtype=dt)
+        out[f"null_source_{sfx}"] = functools.partial(NullSource, dtype=dt)
+        out[f"null_sink_{sfx}"] = functools.partial(NullSink, dtype=dt)
+        out[f"noise_source_{sfx}"] = functools.partial(NoiseSource, dtype=dt)
+    return out
+
+
+globals().update(_suffix_factories())

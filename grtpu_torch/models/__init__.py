@@ -1,1 +1,3 @@
-from grtpu_torch.models.fm import FmDeemph, WfmRcv
+from grtpu_torch.models.fm import (
+    AmDemod, FmDeemph, FmPreemph, NbfmRx, NbfmTx, WfmRcv, WfmTx,
+)

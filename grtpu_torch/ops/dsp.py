@@ -1,8 +1,11 @@
-"""Scalar DSP primitives of the WBFM and DMR chains: FM discriminator, FM
-modulator, first-order recurrences, IIR filters and control-loop helpers,
-in PyTorch.
+"""Scalar DSP primitives: rotator, NCO, FM discriminator, FM and phase
+modulators, first-order recurrences, IIR filters, control-loop helpers and
+the DC blocker, in PyTorch.
 
-Port of the matching functions of ``grtpu.ops.dsp``.  Analogs of:
+Port of ``grtpu.ops.dsp``.  Analogs of:
+  * gr_rotator.h / gri_fxpt NCO — complex phase rotation and waveform
+    synthesis: the whole time-block's phase ramp is made at once in float32
+    with a carried phase scalar, wrapped each chunk.
   * gr_quadrature_demod_cf (general/gr_quadrature_demod_cf.cc:47-62) — FM
     discriminator via conjugate product + atan2 (history = 2).
   * gr_frequency_modulator_fc — phase integrator.
@@ -19,7 +22,9 @@ import math
 import numpy as np
 import torch
 
-from grtpu_torch.ops.fir import as_taps, fir_filter, pad_last
+from grtpu_torch.utils.device import resolve
+from grtpu_torch.ops.fir import (as_taps, fir_filter, pad_last, phase_advance,
+                                 phase_ramp)
 
 
 def _scalar_like(v, ref: torch.Tensor) -> torch.Tensor:
@@ -36,6 +41,55 @@ def _pow_series(a: float, start: int, n: int, device) -> torch.Tensor:
     e = torch.arange(start, start + n, dtype=torch.float64, device=device)
     base = torch.full((n,), a, dtype=torch.float64, device=device)
     return base.pow(e).to(torch.float32)
+
+
+# -------------------------------------------------------------------- rotator
+def rotate(x: torch.Tensor, phase, phase_inc: float):
+    """Multiply x by exp(j*(phase + i*phase_inc)); returns (y, new_phase).
+
+    The phase ramp is float32 (grtpu's arithmetic, see
+    :func:`grtpu_torch.ops.fir.phase_ramp`); the carried phase is wrapped
+    each chunk."""
+    n = x.shape[0]
+    ph = phase_ramp(phase, phase_inc, n, x.device)
+    y = x * torch.complex(torch.cos(ph), torch.sin(ph))
+    return y.to(torch.complex64), phase_advance(phase, phase_inc * n, x.device)
+
+
+def _phase_device(phase, device):
+    if device is None and isinstance(phase, torch.Tensor):
+        return phase.device
+    return resolve(device)
+
+
+def nco_sin(phase, phase_inc: float, n: int, device=None):
+    """n samples of sin(phase + i*phase_inc) and the wrapped next phase, on
+    ``phase``'s device when it is a tensor, else on ``device``."""
+    dev = _phase_device(phase, device)
+    ph = phase_ramp(phase, phase_inc, n, dev)
+    return torch.sin(ph), phase_advance(phase, phase_inc * n, dev)
+
+
+def nco_cos(phase, phase_inc: float, n: int, device=None):
+    dev = _phase_device(phase, device)
+    ph = phase_ramp(phase, phase_inc, n, dev)
+    return torch.cos(ph), phase_advance(phase, phase_inc * n, dev)
+
+
+def nco_exp(phase, phase_inc: float, n: int, device=None):
+    dev = _phase_device(phase, device)
+    ph = phase_ramp(phase, phase_inc, n, dev)
+    return (torch.complex(torch.cos(ph), torch.sin(ph)),
+            phase_advance(phase, phase_inc * n, dev))
+
+
+def vco(freq: torch.Tensor, phase, sensitivity: float):
+    """Voltage-controlled oscillator (gr_vco_f): phase integrates the input.
+
+    Returns (cos(phi), new_phase)."""
+    dphi = sensitivity * freq
+    phi = _scalar_like(phase, dphi) + torch.cumsum(dphi, dim=0)
+    return torch.cos(phi), torch.remainder(phi[-1], 2 * np.pi)
 
 
 # -------------------------------------------------------- quadrature demod
@@ -81,6 +135,12 @@ def frequency_modulator(x: torch.Tensor, phase, sensitivity: float):
     phi = _scalar_like(phase, dphi) + torch.cumsum(dphi, dim=0)
     y = torch.complex(torch.cos(phi), torch.sin(phi))
     return y, torch.remainder(phi[-1], 2 * np.pi).to(torch.float32)
+
+
+def phase_modulator(x: torch.Tensor, sensitivity: float) -> torch.Tensor:
+    """gr_phase_modulator_fc: out = exp(j * sensitivity * x)."""
+    ph = sensitivity * x
+    return torch.complex(torch.cos(ph), torch.sin(ph))
 
 
 # ------------------------------------------------------------------- IIR
@@ -242,3 +302,20 @@ def phase_wrap(phase: torch.Tensor) -> torch.Tensor:
     as ``jnp.mod``."""
     return torch.remainder(phase + np.pi, 2 * np.pi) - np.pi
 
+
+# ----------------------------------------------------------------- dc block
+def dc_blocker(x: torch.Tensor, state: torch.Tensor, length: int):
+    """gr_dc_blocker_ff, single moving-average form:
+    y[i] = x[i - (D-1)//2] - MA_D(x)[i]; ``state`` carries the needed history
+    (``(D-1) + (D-1)//2`` samples).  Returns (y, new_state)."""
+    d = length
+    xs = torch.cat([state, x])
+    c = torch.cumsum(xs.to(torch.float32), dim=0)
+    c = pad_last(c, 1, 0)
+    ma = (c[d:] - c[:-d]) / d  # MA over trailing window, len(xs)-d+1 values
+    n = x.shape[0]
+    half = (d - 1) // 2
+    delayed = xs[xs.shape[0] - n - half: xs.shape[0] - half]
+    y = delayed - ma[ma.shape[0] - n:]
+    new_hist = xs[xs.shape[0] - (d - 1) - half:]
+    return y.to(x.dtype), new_hist

@@ -1,7 +1,8 @@
 """FIR filtering as Toeplitz block matmuls, in PyTorch.
 
 Port of ``grtpu.ops.fir`` (``fir_filter``, ``batch_fir_filter``,
-``interp_fir_filter``, ``compose_taps``, ``compose_taps_power``).  The formulation is grtpu's: for
+``interp_fir_filter``, ``fir_filterbank``, ``freq_xlating_fir_filter``,
+``rotate_taps``, ``compose_taps``, ``compose_taps_power``).  The formulation is grtpu's: for
 a block of B consecutive outputs the correlation
 
     y[m*B + b] = sum_k h[k] * x[m*B + b + k]
@@ -253,6 +254,80 @@ def interp_fir_filter(x: torch.Tensor, taps, interp: int,
     y = y.reshape(x.shape[:-1] + (m, l, block)).transpose(-1, -2)
     y = y.reshape(x.shape[:-1] + (-1,))
     return y[..., :n * l].to(_out_dtype(x.dtype, taps.dtype))
+
+
+# ----------------------------------------------------------------- multi-filt
+def fir_filterbank(x: torch.Tensor, tapbank,
+                   precision: str = "f32") -> torch.Tensor:
+    """Apply F different filters of equal length to the same input.
+
+    tapbank: (F, K), convolution orientation.  Returns (F, n) with
+    n = len(x) - K + 1: one matmul with F*B output columns (band-edge FLL,
+    interpolator banks, pfb clock sync)."""
+    tapbank = torch.flip(as_taps(tapbank, x.device), dims=(1,))
+    f, k = tapbank.shape
+    n = x.shape[0] - (k - 1)
+    block = _block_for(n)
+    m = -(-n // block)
+    need = m * block + k - 1
+    xp = pad_last(x, 0, max(0, need - x.shape[0]))
+    w = _window_matrix(xp, k, block)
+    t = torch.cat([_tap_matrix(tapbank[i], block) for i in range(f)], dim=1)
+    y = _matmul(w, t, precision).reshape(m, f, block)
+    y = y.transpose(0, 1).reshape(f, m * block)
+    return y[:, :n].to(_out_dtype(x.dtype, tapbank.dtype))
+
+
+# -------------------------------------------------------------------- rotator
+def phase_ramp(phase, step: float, n: int, device) -> torch.Tensor:
+    """float32 ``phase + step * arange(n)``, rounded as grtpu's compiled
+    step rounds it: the integer ramp is widened to float32 and multiplied by
+    the step rounded to float32, and the product is added to the carried
+    phase in one fused multiply-add (one rounding), which is what XLA emits
+    for this expression inside a jitted flowgraph.  The fused operation is
+    taken in float64, where the product of two float32 values is exact.  A
+    long ramp reaches 1e4 rad and more, where one float32 step is 1e-3 rad,
+    so the order of rounding is what the two packages' agreement rests on."""
+    k = torch.arange(n, dtype=torch.int32, device=device).to(torch.float64)
+    ph = torch.as_tensor(phase, dtype=torch.float32, device=device)
+    step32 = torch.tensor(float(step), dtype=torch.float32).item()
+    return (ph.to(torch.float64) + step32 * k).to(torch.float32)
+
+
+def phase_advance(phase, total: float, device) -> torch.Tensor:
+    """float32 ``(phase + total) mod 2 pi`` (floored), the carried phase
+    after a chunk; ``total`` is the host float ``step * n``."""
+    ph = torch.as_tensor(phase, dtype=torch.float32, device=device)
+    return torch.remainder(ph + float(total), 2 * np.pi)
+
+
+def freq_xlating_fir_filter(x: torch.Tensor, taps, phase, phase_inc: float,
+                            decim: int = 1, precision: str = "f32"):
+    """Frequency-translating decimating FIR
+    (gr_freq_xlating_fir_filter_XXX.cc.t:72-123 semantics).
+
+    The reference pre-rotates the taps by the center frequency and spins the
+    *output* by a rotator advancing ``decim * phase_inc`` per output sample.
+    Here ``taps`` must already be the rotated (complex) taps
+    (:func:`rotate_taps`); ``phase`` is the carried rotator phase (radians);
+    ``phase_inc`` is radians per *input* sample (= -2*pi*center_freq/fs as
+    in the reference).
+
+    Returns (y, new_phase)."""
+    y = fir_filter(x, taps, decim, precision)
+    nout = y.shape[0]
+    ph = phase_ramp(phase, phase_inc * decim, nout, x.device)
+    rot = torch.complex(torch.cos(ph), torch.sin(ph))
+    new_phase = phase_advance(phase, phase_inc * decim * nout, x.device)
+    return (y * rot).to(torch.complex64), new_phase
+
+
+def rotate_taps(taps, center_freq: float, fs: float) -> np.ndarray:
+    """Pre-rotate real prototype taps to a center frequency
+    (gr_freq_xlating_fir_filter ctor behavior)."""
+    k = np.arange(len(taps))
+    shift = np.exp(2j * np.pi * center_freq / fs * k)
+    return (np.asarray(taps) * shift).astype(np.complex64)
 
 
 # ---------------------------------------------------------------- composition

@@ -99,19 +99,25 @@ def _ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def scan_dot(x_window: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """sum_k x_window[k] * taps[k] (real taps) as XLA's CPU backend sums it
+    for grtpu inside a scan: in order, each product fused into the running
+    sum — except the real part of a complex window, whose products are
+    rounded first."""
+    if x_window.is_complex():
+        return torch.complex(_ordered_dot(x_window.real, taps),
+                             _fused_dot(x_window.imag, taps))
+    return _fused_dot(x_window, taps)
+
+
 def interpolate_point(x_window: torch.Tensor, mu: torch.Tensor,
                       bank: torch.Tensor) -> torch.Tensor:
     """Single-point interpolation from an 8-sample window (the step of the
     clock-recovery recurrences).  mu in [0, 1], a 0-d tensor: the phase is
     picked on the device, with no host read.
 
-    The 8-term dot is summed as XLA's CPU backend sums grtpu's (a scalar
-    reduce inside a scan): in order, each product fused into the running
-    sum — except the real part of a complex window, whose products are
-    rounded first.  Both packages then pick the same interpolator phase on
-    the next symbol, where a last-bit difference could flip it."""
+    The 8-term dot is summed in grtpu's order (:func:`scan_dot`).  Both
+    packages then pick the same interpolator phase on the next symbol, where
+    a last-bit difference could flip it."""
     taps = torch.index_select(bank, 0, torch.round(mu * NSTEPS).long().reshape(1))[0]
-    if x_window.is_complex():
-        return torch.complex(_ordered_dot(x_window.real, taps),
-                             _fused_dot(x_window.imag, taps))
-    return _fused_dot(x_window, taps)
+    return scan_dot(x_window, taps)

@@ -121,6 +121,10 @@ class Block:
     # True for blocks that emit stream tags during work; the port's
     # executor does not run such blocks yet (it raises).
     emits_tags: bool = False
+    # True for a source block without carried state: the executor then
+    # calls ``apply(state, n, device=...)``, since no state tensor tells the
+    # block where to produce.
+    source_takes_device: bool = False
 
     _instance_counter = [0]
     # Bumped whenever ANY block's parameters change (see touch());

@@ -482,7 +482,11 @@ class StreamExecutor:
             uid = str(b.uid)
             if not b.in_ports:
                 n_out = self.block_nin[b.uid] // b.decim * b.interp
-                new_s, outs = b.apply(ctx["blocks"][uid], n_out)
+                if b.source_takes_device:
+                    new_s, outs = b.apply(ctx["blocks"][uid], n_out,
+                                          device=self.device)
+                else:
+                    new_s, outs = b.apply(ctx["blocks"][uid], n_out)
             else:
                 new_s, outs = b.apply(ctx["blocks"][uid], *ins)
             ctx["blocks"][uid] = new_s

@@ -168,3 +168,70 @@ def test_iir_init_state_shapes():
         b = td.iir_init_state(nff, nfb)
         assert [tuple(v.shape) for v in b] == [tuple(v.shape) for v in a]
         assert all(v.dtype == torch.float32 for v in b)
+
+
+# ----------------------------------------- rotator, NCO, VCO, phase mod, DC
+@pytest.mark.parametrize("n", [257, 16384])
+def test_rotate(n):
+    """float32 phase ramp rounded as grtpu's compiled step rounds it (grtpu
+    under ``jax.jit``, as its executor runs it): at 16,384 samples the ramp
+    reaches 1.2e4 rad (one float32 step there is 1e-3 rad), and the two
+    still agree to 1e-5."""
+    x = fm_iq(n, 20)
+    ref, rph = jax.jit(lambda v, ph: jd.rotate(v, ph, 0.7353))(
+        jnp.asarray(x), jnp.float32(0.5))
+    got, gph = td.rotate(T(x), torch.tensor(0.5), 0.7353)
+    assert got.dtype == torch.complex64
+    assert rel(got.numpy(), ref) < 1e-5
+    assert abs(float(gph) - float(rph)) < 1e-6
+
+
+@pytest.mark.parametrize("name", ["nco_sin", "nco_cos", "nco_exp"])
+def test_nco(name):
+    ref, rph = jax.jit(lambda ph: getattr(jd, name)(ph, -0.3111, 8192))(
+        jnp.float32(2.0))
+    got, gph = getattr(td, name)(torch.tensor(2.0), -0.3111, 8192)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    assert abs(float(gph) - float(rph)) < 1e-6
+    # a plain number as the phase needs a device: the card unless named
+    got2, _ = getattr(td, name)(2.0, -0.3111, 8192, device="cpu")
+    np.testing.assert_array_equal(got2.numpy(), got.numpy())
+
+
+def test_vco():
+    """The phase is a float32 prefix sum; the two packages associate it
+    differently (torch sums in float64 on a CPU), so the bound is absolute
+    and grows with the length: 2e-4 at 4096 samples of |dphi| < 0.5."""
+    f = (0.5 * np.sin(np.arange(4096) * 0.01)).astype(np.float32)
+    ref, rph = jd.vco(jnp.asarray(f), jnp.float32(0.25), 0.9)
+    got, gph = td.vco(T(f), torch.tensor(0.25), 0.9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
+    d = abs(float(gph) - float(rph))
+    assert min(d, 2 * np.pi - d) < 2e-4
+
+
+def test_phase_modulator():
+    x = np.random.RandomState(21).randn(2000).astype(np.float32)
+    ref = jd.phase_modulator(jnp.asarray(x), 1.7)
+    got = td.phase_modulator(T(x), 1.7)
+    assert got.dtype == torch.complex64
+    assert rel(got.numpy(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("length", [8, 33])
+def test_dc_blocker(length):
+    """A prefix-sum difference at grtpu's own test length (1,000 samples):
+    absolute bound 1e-4 on unit-variance input plus a DC of 3."""
+    rng = np.random.RandomState(22)
+    x = (3.0 + rng.randn(2000)).astype(np.float32)
+    nst = (length - 1) + (length - 1) // 2
+    js, ts = jnp.zeros(nst, jnp.float32), torch.zeros(nst)
+    outs = []
+    for c in range(2):  # two chunks: the carried history too
+        seg = x[c * 1000:(c + 1) * 1000]
+        ry, js = jd.dc_blocker(jnp.asarray(seg), js, length)
+        gy, ts = td.dc_blocker(T(seg), ts, length)
+        np.testing.assert_allclose(gy.numpy(), np.asarray(ry), atol=1e-4)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        outs.append(gy.numpy())
+    assert abs(np.concatenate(outs)[200:].mean()) < 0.05

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from grtpu.ops import fir as jfir  # noqa: E402
@@ -164,3 +165,57 @@ def test_fft_filter_ccc_decim():
     got = tfft(torch.from_numpy(x), taps, d).numpy()
     assert got.dtype == np.complex64
     assert rel(got, ref) < 1e-5
+
+
+# ------------------------------------------- filterbank, tuner, rotate_taps
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("f,k,n", [(3, 8, 100), (9, 33, 1000), (2, 5, 4)])
+def test_fir_filterbank(f, k, n, complex_):
+    rng = np.random.RandomState(40 + f)
+    x = _x(rng, (n + k - 1,), complex_)
+    bank = rng.randn(f, k).astype(np.float32)
+    ref = jfir.fir_filterbank(jnp.asarray(x), jnp.asarray(bank))
+    got = tfir.fir_filterbank(torch.from_numpy(x), bank)
+    assert got.shape == (f, n)
+    assert rel(got.numpy(), ref) < 1e-5
+
+
+def test_rotate_taps_identical():
+    taps = np.random.RandomState(41).randn(73).astype(np.float32)
+    np.testing.assert_array_equal(jfir.rotate_taps(taps, 400e3, 2.048e6),
+                                  tfir.rotate_taps(taps, 400e3, 2.048e6))
+
+
+@pytest.mark.parametrize("decim,n", [(1, 512), (8, 4096), (8, 32768)])
+def test_freq_xlating_fir_filter(decim, n):
+    """The tuner: the FIR to 1e-5, and the float32 rotator ramp rounded as
+    grtpu's compiled step rounds it (grtpu runs under ``jax.jit``, as its
+    executor runs it: XLA then fuses the ramp's multiply-add) — at 32,768
+    samples the ramp reaches ~4e4 rad, where one float32 step is 4e-3 rad,
+    so an order that rounds differently would show at 1e-3.  The carried
+    phase agrees to 1e-6 rad."""
+    rng = np.random.RandomState(42)
+    taps = rng.randn(41).astype(np.float32) / 41
+    rt = jfir.rotate_taps(taps, 400e3, 2.048e6)
+    inc = -2 * np.pi * 400e3 / 2.048e6
+    x = _x(rng, (n + 40,), True)
+    ref, rph = jax.jit(lambda v, ph: jfir.freq_xlating_fir_filter(
+        v, rt, ph, inc, decim))(jnp.asarray(x), jnp.float32(1.25))
+    got, gph = tfir.freq_xlating_fir_filter(
+        torch.from_numpy(x), rt, torch.tensor(1.25), inc, decim)
+    assert got.dtype == torch.complex64 and got.shape == (n // decim,)
+    assert rel(got.numpy(), ref) < 1e-5
+    assert gph.dtype == torch.float32
+    assert abs(float(gph) - float(rph)) < 1e-6
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+def test_freq_xlating_precision_argument(precision):
+    rng = np.random.RandomState(43)
+    rt = tfir.rotate_taps(rng.randn(33).astype(np.float32) / 33, 1e3, 8e3)
+    x = torch.from_numpy(_x(rng, (1024 + 32,), True))
+    exact, _ = tfir.freq_xlating_fir_filter(x, rt, 0.0, -0.785, 4)
+    got, _ = tfir.freq_xlating_fir_filter(x, rt, 0.0, -0.785, 4,
+                                          precision=precision)
+    assert rel(got.numpy(), exact.numpy()) < (1e-4 if precision == "bf16x3"
+                                              else 3e-2)

@@ -15,9 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from grtpu.utils import eng_notation as jeng  # noqa: E402
 from grtpu.utils import firdes as jf  # noqa: E402
+from grtpu.utils import optfir as jopt  # noqa: E402
+from grtpu.utils import remez_engine as jrem  # noqa: E402
 from grtpu.runtime import tags as jtags  # noqa: E402
+from grtpu_torch.utils import eng_notation as teng  # noqa: E402
 from grtpu_torch.utils import firdes as tf  # noqa: E402
+from grtpu_torch.utils import optfir as topt  # noqa: E402
+from grtpu_torch.utils import remez_engine as trem  # noqa: E402
 from grtpu_torch.runtime import tags as ttags  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -65,6 +71,62 @@ def test_compute_ntaps_identical():
                 == tf.compute_ntaps(256e3, tw, tf.Window.HAMMING))
 
 
+OPTFIR = [
+    ("low_pass", (1.0, 64e3, 3000, 4500, 0.1, 60)),      # FmDemod's design
+    ("low_pass", (1.0, 256e3, 15000, 16000, 0.1, 60)),
+    ("high_pass", (1.0, 48000, 4000, 6000, 0.1, 60)),
+    ("band_pass", (1.0, 48000, 3000, 4000, 8000, 9000, 0.1, 60)),
+    ("complex_band_pass", (1.0, 48000, 3000, 4000, 8000, 9000, 0.1, 60)),
+]
+
+
+@pytest.mark.parametrize("name,args", OPTFIR,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(OPTFIR)])
+def test_optfir_identical(name, args):
+    """Parks-McClellan designs are bit-identical (FmDemod's audio taps come
+    from here, so every bound downstream rests on it)."""
+    a = getattr(jopt, name)(*args)
+    b = getattr(topt, name)(*args)
+    assert a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+
+
+REMEZ = [
+    (65, [0, 0.2, 0.25, 0.5], [1, 0], [1, 1], "bandpass"),
+    (64, [0, 0.2, 0.25, 0.5], [1, 0], [1, 1], "bandpass"),
+    (61, [0.05, 0.45], [1], None, "hilbert"),
+    (32, [0.0, 0.4], [1], None, "differentiator"),
+]
+
+
+@pytest.mark.parametrize("n,bands,des,w,ft", REMEZ,
+                         ids=[f"{c[4]}-{c[0]}" for c in REMEZ])
+def test_remez_engine_identical(n, bands, des, w, ft):
+    np.testing.assert_array_equal(
+        jrem.design(n, bands, des, w, ft), trem.design(n, bands, des, w, ft))
+
+
+def test_pm_remez_and_order_estimates_identical():
+    np.testing.assert_array_equal(
+        jrem.pm_remez(64, [0, 0.4, 0.5, 1.0], [1, 1, 0, 0], [1, 1]),
+        trem.pm_remez(64, [0, 0.4, 0.5, 1.0], [1, 1, 0, 0], [1, 1]))
+    assert (jopt._lporder(0.1, 0.15, 0.01, 0.001)
+            == topt._lporder(0.1, 0.15, 0.01, 0.001))
+    np.testing.assert_array_equal(
+        jopt.remez(33, [0, 0.1, 0.15, 0.5], [1, 0]),
+        topt.remez(33, [0, 0.1, 0.15, 0.5], [1, 0]))
+    assert jopt.stopband_atten_to_dev(60) == topt.stopband_atten_to_dev(60)
+    assert jopt.passband_ripple_to_dev(0.1) == topt.passband_ripple_to_dev(0.1)
+
+
+@pytest.mark.parametrize("v", [0.0, 1.0, 999.4, 1234.5, 2.048e6, 4.7e-9,
+                               -33e3, 1e15])
+def test_eng_notation_identical(v):
+    assert jeng.num_to_str(v) == teng.num_to_str(v)
+    for text in ("100M", "3.3u", "12", "1e3", "2.5G", " 47k "):
+        assert jeng.str_to_num(text) == teng.str_to_num(text)
+
+
 def test_tags_identical():
     tags = [jtags.Tag(10, "a", 1), jtags.Tag(25, "b", 2), jtags.Tag(3, "c")]
     ttag = [ttags.Tag(t.offset, t.key, t.value, t.srcid) for t in tags]
@@ -76,10 +138,46 @@ def test_tags_identical():
             == [t.offset for t in ttags.tags_in_window(ttag, 3, 25)])
 
 
+PORTED_WHOLE = ["ops.fir", "ops.dsp", "ops.pfb", "ops.mmse_interp",
+                "blocks.convert", "blocks.gengen", "blocks.stream",
+                "blocks.filter", "blocks.analog", "blocks.pfb", "models.fm",
+                "utils.optfir", "utils.remez_engine", "utils.eng_notation",
+                "utils.firdes"]
+# grtpu keeps the matmul mode in a module global; the port takes it per call
+NOT_PORTED_BY_DESIGN = {"ops.fir": {"set_precision"}}
+
+
+@pytest.mark.parametrize("module", PORTED_WHOLE)
+def test_every_public_name_has_its_counterpart(module):
+    """Each public function, class and typed factory that a wholly ported
+    grtpu module defines is present in its grtpu_torch counterpart."""
+    import functools
+    import importlib
+    import inspect
+
+    j = importlib.import_module("grtpu." + module)
+    t = importlib.import_module("grtpu_torch." + module)
+    names = [n for n, v in vars(j).items() if not n.startswith("_")
+             and ((inspect.isfunction(v) or inspect.isclass(v))
+                  and v.__module__ == j.__name__
+                  or isinstance(v, functools.partial))]
+    assert names
+    missing = {n for n in names if not hasattr(t, n)}
+    assert missing == NOT_PORTED_BY_DESIGN.get(module, set())
+
+
 def test_import_pulls_in_no_jax():
     """Packaging guard: the port imports neither jax nor grtpu."""
     code = ("import sys, grtpu_torch, grtpu_torch.blocks.analog, "
             "grtpu_torch.blocks.filter, grtpu_torch.blocks.gengen, "
+            "grtpu_torch.blocks.convert, grtpu_torch.blocks.stream, "
+            "grtpu_torch.blocks.pfb, grtpu_torch.ops.pfb, "
+            "grtpu_torch.ops.dsp, grtpu_torch.ops.fir, "
+            "grtpu_torch.ops.sweep_plans, "
+            "grtpu_torch.utils.eng_notation, grtpu_torch.utils.optfir, "
+            "grtpu_torch.utils.remez_engine, grtpu_torch.utils.firdes, "
+            "grtpu_torch.utils.idle_share, "
+            "grtpu_torch.models, grtpu_torch.blocks, "
             "grtpu_torch.models.fm, grtpu_torch.models.dmr, "
             "grtpu_torch.ops.cuda_fir, grtpu_torch.ops.fft_filter, "
             "grtpu_torch.ops.mmse_interp, grtpu_torch.digital.blocks, "
@@ -110,7 +208,13 @@ def test_default_device_is_the_card():
     assert device.resolve(None) == torch.device("cuda")
     assert device.resolve("cpu") == torch.device("cpu")
     assert device.resolve(torch.device("cuda", 1)) == torch.device("cuda:1")
-    for fn in (StreamExecutor.__init__, modems.GmskModem.__init__,
+    from grtpu_torch.blocks import pfb as pfb_blocks
+    from grtpu_torch.ops import dsp
+
+    for fn in (pfb_blocks.pfb_clock_sync_init,
+               pfb_blocks.pfb_clock_sync_windowed_init, dsp.nco_sin,
+               dsp.nco_cos, dsp.nco_exp, StreamExecutor.__init__,
+               modems.GmskModem.__init__,
                modems.PskModem.__init__, modems.Fsk4Modem.__init__,
                dmr.DmrTransmitter.__init__, dmr.DmrReceiver.__init__,
                loops.costas_init_state, loops.mm_init_state,
