@@ -61,7 +61,8 @@ Phases (each raises on failure; nothing is caught):
         the rotator's carried phase equal to a numpy float32 model of the
         recurrence within 1e-3 rad (its distance from the exact closed form
         is printed: float32 cannot hold it at this chunk, see PERF.md).
-        Prints Msamples/s of input.
+        Prints Msamples/s of input.  The kernel path runs again at chunk
+        65,536, and the audio SNR is printed at both chunks.
      b. NbfmTx(16e3, 64e3) -> NbfmRx(16e3, 64e3) on 2^20 audio samples of a
         1 kHz tone (tests/test_fm_models.py:89-116's gates); WfmRcvPll on a
         stereo composite (19 kHz pilot, 700 Hz left, 2200 Hz right), 2^21
@@ -82,10 +83,24 @@ Phases (each raises on failure; nothing is caught):
         one-call op; channelize -> synthesize round trip at 16 channels
         (NMSE < 0.1 at the best lag).
      d. the sequential loops, host-bound by construction: PfbClockSync on a
-        20,000-sample BPSK stream through the variable-rate executor and
-        pfb_clock_sync_chunked on the same stream (decisions equal to the
-        CPU run's); Agc and PllRefout over 8,192 samples.
-  8. Print one JSON line of per-kernel results and, last, the device line.
+        12,000-sample BPSK stream through the variable-rate executor (chunk
+        4000; under device_loop the device events of one replay of each
+        captured graph are printed) and pfb_clock_sync_chunked on the same
+        stream (decisions equal to the CPU run's); Agc and PllRefout over
+        8,192 samples at chunk 2048.
+  8. The executor's own cost a chunk (benchmarks/executor_overhead_bench.py's
+     shape: 20 Copy blocks, chunk 4096, 256 chunks), eager and under
+     device_loop.
+  9. Print one JSON line of per-kernel results and, last, the device line.
+
+Every executor path of phases 4-8 runs twice eagerly and twice under
+StreamExecutor.run(device_loop=True), each mode in an executor of its own,
+on the same input: the device_loop outputs must be torch.equal to the eager
+ones; both rates are printed (the second runs'), with the first device_loop
+run's time and the host time its CUDA-graph captures took.  Under
+device_loop the kernel launches are counted run by run: on the WBFM kernel
+path and the tuner path fir_decim_mma_fwd is launched once a chunk (the
+first chunk eagerly, the rest in graph replays) and nothing else.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 grtpu_torch package beside this script.
@@ -232,6 +247,66 @@ def align(ref, est, max_lag=256):
     return r[: n - lag], e[lag:n]
 
 
+def same_outputs(a, b) -> bool:
+    """torch.equal over one output tensor or a tuple of them."""
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(a, b))
+
+
+def two_modes(torch, label, build, inputs, items, unit="Msamples/s",
+              per=1e6, runs=2, cf=None):
+    """Drive one executor path eagerly and under run(device_loop=True), each
+    in an executor of its own made by ``build()``, ``runs`` runs each on the
+    same input (the first device_loop run warms up and captures; the later
+    ones replay).  Gate: every device_loop output torch.equal to the eager
+    output of the same run.  Prints the rate of each mode's last run, the
+    first device_loop run's time and the host time its captures took.
+    With ``cf`` (grtpu_torch.ops.cuda_fir), the kernel launches of each
+    device_loop run are counted (zeroed just before it, read just after)
+    and returned as the fourth item.
+    Returns (eager outputs, {mode: rate}, the device_loop executor,
+    [launches of each device_loop run])."""
+    outs, secs, exs, launches = {}, {}, {}, []
+    for mode in ("eager", "device_loop"):
+        ex = exs[mode] = build()
+        outs[mode], secs[mode] = [], []
+        for _ in range(runs):
+            if cf is not None and mode == "device_loop":
+                for name in cf.launches:
+                    cf.launches[name] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = ex.run(*inputs, device_loop=mode == "device_loop")
+            torch.cuda.synchronize()
+            secs[mode].append(time.perf_counter() - t0)
+            outs[mode].append(y)
+            if cf is not None and mode == "device_loop":
+                launches.append(dict(cf.launches))
+    same = all(same_outputs(a, b)
+               for a, b in zip(outs["eager"], outs["device_loop"]))
+    loop = exs["device_loop"]._device_loop
+    if callable(items):
+        items = items(outs["eager"][-1])
+    rate = {m: items / secs[m][-1] / per for m in secs}
+    print(f"{label}: eager {rate['eager']:.2f} {unit}, device_loop "
+          f"{rate['device_loop']:.2f} {unit} ({runs} runs each, rates of the "
+          f"last; the first device_loop run took {secs['device_loop'][0]:.3f} "
+          f"s, capturing {len(loop.graphs())} graphs "
+          f"{loop.capture_seconds:.3f} s); device_loop torch.equal to eager: "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"{label}: the device_loop output differs from the eager output")
+    if cf is not None:
+        print(f"{label}: kernel launches of each device_loop run: {launches}",
+              flush=True)
+    return outs["eager"], rate, exs["device_loop"], launches
+
+
 def check_kernels(torch, cf, fir, firdes, _build):
     """Phase 3: every kernel case against its twin; returns per-case rows."""
     dev = torch.device("cuda")
@@ -251,7 +326,9 @@ def check_kernels(torch, cf, fir, firdes, _build):
         times = []
         library_ms = fma_ms = g_ms = g_fma = None
         if library is not None:
-            lib_err = errors(library().reshape(ref.shape).float(), ref)[1]
+            lib_out = library().reshape(ref.shape)
+            lib_err = errors(lib_out if lib_out.is_complex() else lib_out.float(),
+                             ref)[1]
             if not lib_err <= TOL[precision]:
                 fail(f"{name} {precision}: the library call is off its twin "
                      f"by {lib_err:.3e}: it does not compute this function")
@@ -300,9 +377,10 @@ def check_kernels(torch, cf, fir, firdes, _build):
         return got
 
     def conv1d(x, taps, decim):
-        """The one PyTorch call that computes a single-stage real FIR (cuDNN;
-        TF32 is off): taps flipped, stride = decim.  Timed only.  On float32
-        tensors it serves the f32 and the bf16x3 cases alike."""
+        """The one PyTorch call that computes a single-stage FIR (cuDNN;
+        TF32 is off): taps flipped, stride = decim; on a complex64 stream
+        the taps are cast to complex64.  Timed only.  On float32 tensors it
+        serves the f32 and the bf16x3 cases alike."""
         w = taps.to(x.dtype).flip(-1)[None, None, :]
         xin = x[:, None, :]
         return lambda: torch.nn.functional.conv1d(xin, w, stride=decim)
@@ -370,8 +448,8 @@ def check_kernels(torch, cf, fir, firdes, _build):
                                      _fma=True)))
     del x16
     # the same filter in its ccf form at the bank's width: 64 complex
-    # channels, the two planes of each as rows of one launch (no single
-    # library call computes it)
+    # channels, the two planes of each as rows of one launch; the library
+    # call is conv1d on the complex64 stream
     xc = torch.complex(x, x.flip(0))
     for prec in ("bf16x3", "f32"):
         case("fir_decim_c 64x2^18 K155 d8",
@@ -379,7 +457,8 @@ def check_kernels(torch, cf, fir, firdes, _build):
              lambda: cf.fir_decim_c(xc, t155[0], AUDIO_DECIM, precision=prec),
              lambda: fir.fir_filter(xc, t155[0], AUDIO_DECIM, prec),
              flop=2 * k * 2 * 64 * nout,
-             nbytes=8 * xc.numel() + 4 * k + 8 * 64 * nout, reps=5)
+             nbytes=8 * xc.numel() + 4 * k + 8 * 64 * nout, reps=5,
+             library=conv1d(xc, t155[0], AUDIO_DECIM), lib_reps=5)
     del xc
 
     # short filters at decimation 8 and 2: the two decimating routes side by
@@ -412,11 +491,12 @@ def check_kernels(torch, cf, fir, firdes, _build):
                            + 1j * rng.randn(4, 4096 * d + k - 1)
                            ).astype(np.complex64)).to(dev)
     tr = torch.from_numpy((rng.randn(k) / k).astype(np.float32)).to(dev)
-    # (two real planes a launch; the complex cases have no single library call)
+    # (two real planes a launch; the library call is conv1d on complex64)
     case("fir_decim_c 4x16k K200 d4", "fir_decim_fwd", "f32",
          lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
          lambda: fir.fir_filter(xc, tr, d, "f32"),
-         flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096)
+         flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096,
+         library=conv1d(xc, tr, d))
     k, d = 96, 2
     xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
                            + 1j * rng.randn(4, 4096 * d + k - 1)
@@ -426,7 +506,8 @@ def check_kernels(torch, cf, fir, firdes, _build):
     case("fir_decim_cc 4x8k K96 d2", "fir_decim_mma_fwd", "bf16x3",
          lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
          lambda: fir.fir_filter(xc, tc, d, "bf16x3"),
-         flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096)
+         flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096,
+         library=conv1d(xc, tc, d))
     del xc
 
     # the headline workload (bench.py): 16 pipes x 2^20 samples, 16 stages
@@ -626,6 +707,23 @@ def run_main_path(torch, cf, headline):
     for name in cf.launches:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+
+    # the same chain under run(device_loop=True): replayed from CUDA graphs,
+    # the kernel launched once a chunk, inside the graph
+    nchunks = MAIN_SAMPLES // MAIN_CHUNK
+    for kind in ("kernel", "plain"):
+        _, rates, _, loop_counts = two_modes(
+            torch, f"main path WBFM ({kind})",
+            lambda: StreamExecutor(wbfm_graph(torch, kind == "kernel"),
+                                   chunk_size=MAIN_CHUNK, device="cuda"),
+            (msg_dev,), MAIN_SAMPLES, cf=cf)
+        rate[f"{kind} device_loop"] = rates["device_loop"]
+        want = nchunks if kind == "kernel" else 0
+        for run in loop_counts:
+            if run["fir_decim_mma_fwd"] != want or sum(run.values()) != want:
+                fail(f"WBFM ({kind}) under device_loop launched {run}; "
+                     f"expected fir_decim_mma_fwd {want} times and nothing "
+                     f"else")
     return counts, rate
 
 
@@ -778,6 +876,11 @@ def run_dmr_stream(torch):
         fail(f"DMR stream: {len(got)} dibits of dtype {got.dtype}")
     if not ser < DMR_GATE:
         fail(f"DMR stream SER {ser:.4f} >= {DMR_GATE}")
+    _, rates, _, _ = two_modes(
+        torch, "DMR stream, variable-rate executor",
+        lambda: StreamExecutor(dmr_stream_graph(torch, modem),
+                               chunk_size=DMR_CHUNK, device="cuda"),
+        (x,), len(got), unit="symbols/s", per=1.0)
 
     chunked = Fsk4Modem(samples_per_symbol=DMR_SPS, chunked=True,
                         device="cuda")
@@ -794,7 +897,7 @@ def run_dmr_stream(torch):
           flush=True)
     if not ser < DMR_GATE:
         fail(f"DMR chunked demod SER {ser:.4f} >= {DMR_GATE}")
-    return vr_rate, ck_rate
+    return vr_rate, ck_rate, rates["device_loop"]
 
 
 # ------------------------------------------------- phases 6 and 7 (configs 1, 2)
@@ -810,8 +913,10 @@ PFB_SAMPLES = 1 << 20
 ARB_ROWS = 64                # benchmarks/resampler_bench.py:38-39
 ARB_CASES = (("3/2", (3, 2), 1 << 17), ("160/147", (160, 147), 147 * 900))
 PFB_STREAM = 1 << 22
-SYNC_SAMPLES = 20000
+SYNC_SAMPLES = 12000
+SYNC_CHUNK = 4000
 LOOP_SAMPLES = 8192
+LOOP_CHUNK = 2048
 
 
 def chain_graph(torch, chain, in_dtype, out_dtypes=None):
@@ -874,11 +979,11 @@ def run_tuner_wbfm(torch, cf):
 
     taps = firdes.low_pass(1.0, CAPTURE_FS, 100e3, 50e3)
 
-    def executor(impl):
+    def executor(impl, chunk=CAPTURE_CHUNK):
         tuner = FreqXlatingFirFilter(TUNER_DECIM, taps, TUNE_HZ, CAPTURE_FS)
         g = chain_graph(torch, [tuner, WfmRcv(QUAD_RATE, AUDIO_DECIM, impl=impl)],
                         torch.complex64, [torch.float32])
-        return StreamExecutor(g, chunk_size=CAPTURE_CHUNK, device="cuda"), tuner
+        return StreamExecutor(g, chunk_size=chunk, device="cuda"), tuner
 
     t0 = time.perf_counter()
     x, msg = wideband_capture()
@@ -922,9 +1027,13 @@ def run_tuner_wbfm(torch, cf):
     first = -((len(taps) - 1) // 2) % total_decim
     ref = StreamExecutor(g, chunk_size=8192, device="cuda").run(
         msg[first::total_decim]).cpu().numpy()
-    settle = 512
-    r, e = align(ref[settle:-settle], y[settle:-settle])
-    s = snr_db(r.astype(np.float64), e.astype(np.float64))
+
+    def audio_snr(y):
+        settle = 512
+        r, e = align(ref[settle:-settle], y[settle:-settle])
+        return snr_db(r.astype(np.float64), e.astype(np.float64))
+
+    s = audio_snr(y)
     print(f"tuner -> WBFM recovered-audio SNR: {s:.2f} dB (gate 30 dB)")
     if not s > 30.0:
         fail(f"tuner -> WBFM audio SNR {s:.2f} dB <= 30 dB")
@@ -955,6 +1064,30 @@ def run_tuner_wbfm(torch, cf):
         fail("the rotator's carried phase left its float32 recurrence")
     if not off_exact <= nchunks * half_ulp:
         fail("the rotator's carried phase drifted past float32's bound")
+
+    # both modes at this chunk (mxu and kernel) and, on the kernel path, at
+    # the main path's chunk 65,536: the audio SNR at each chunk separates
+    # the float32 rotator's long ramps from the filters' own distortion
+    snrs = {CAPTURE_CHUNK: s}
+    for impl, chunk in (("mxu", CAPTURE_CHUNK), ("kernel", CAPTURE_CHUNK),
+                        ("kernel", 65536)):
+        outs, rates, _, loop_counts = two_modes(
+            torch, f"tuner -> WBFM ({impl}, chunk {chunk})",
+            lambda: executor(impl, chunk)[0], (x_dev,), CAPTURE_SAMPLES,
+            cf=cf)
+        rate[f"{impl} {chunk} device_loop"] = rates["device_loop"]
+        want = CAPTURE_SAMPLES // chunk if impl == "kernel" else 0
+        for run in loop_counts:
+            if run["fir_decim_mma_fwd"] != want or sum(run.values()) != want:
+                fail(f"tuner -> WBFM ({impl}, chunk {chunk}) under "
+                     f"device_loop launched {run}; expected "
+                     f"fir_decim_mma_fwd {want} times and nothing else")
+        if impl == "kernel" and chunk != CAPTURE_CHUNK:
+            snrs[chunk] = audio_snr(outs[0].cpu().numpy())
+    print(f"tuner -> WBFM recovered-audio SNR by chunk: "
+          + ", ".join(f"{c}: {v:.2f} dB" for c, v in snrs.items()), flush=True)
+    if not min(snrs.values()) > 30.0:
+        fail(f"tuner -> WBFM audio SNR {snrs} has a chunk at or below 30 dB")
     return rate, counts
 
 
@@ -966,19 +1099,20 @@ def run_fm_family(torch):
     n = NBFM_SAMPLES
     msg = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(n) / 16e3)
            ).astype(np.float32)
-    g = chain_graph(torch, [NbfmTx(16e3, 64e3), NbfmRx(16e3, 64e3)],
-                    torch.float32, [torch.float32])
-    ex = StreamExecutor(g, chunk_size=65536, device="cuda")
-    t0 = time.perf_counter()
-    audio = ex.run(msg).cpu().numpy()
-    dt = time.perf_counter() - t0
+    outs, rates, _, _ = two_modes(
+        torch, "NbfmTx -> NbfmRx",
+        lambda: StreamExecutor(chain_graph(
+            torch, [NbfmTx(16e3, 64e3), NbfmRx(16e3, 64e3)], torch.float32,
+            [torch.float32]), chunk_size=65536, device="cuda"),
+        (torch.from_numpy(msg).to("cuda"),), n)
+    audio = outs[0].cpu().numpy()
     seg = audio[2048:2048 + 8192]
     spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
     peak = np.argmax(spec) * 16e3 / len(seg)
     inband = spec[np.arange(len(spec)) * 16e3 / len(seg) < 3000].sum() / spec.sum()
-    print(f"NbfmTx -> NbfmRx: {n} audio samples in {dt:.3f} s = "
-          f"{n / dt / 1e6:.2f} Msamples/s; peak {peak:.1f} Hz (1000 +- 10), "
-          f"in-band share {inband:.4f} (gate 0.95)", flush=True)
+    print(f"NbfmTx -> NbfmRx: {n} audio samples at {rates['eager']:.2f} "
+          f"Msamples/s; peak {peak:.1f} Hz (1000 +- 10), in-band share "
+          f"{inband:.4f} (gate 0.95)", flush=True)
     if audio.shape != (n,) or abs(peak - 1000) >= 10 or not inband > 0.95:
         fail("NBFM loopback did not return the tone")
 
@@ -990,12 +1124,13 @@ def run_fm_family(torch):
                  + (left - right) * np.sin(2 * np.pi * 38000 * t) / 2)
     iq = np.exp(1j * np.cumsum(2 * np.pi * 75e3 / QUAD_RATE * composite)
                 ).astype(np.complex64)
-    g = chain_graph(torch, [WfmRcvPll(QUAD_RATE, AUDIO_DECIM)],
-                    torch.complex64, [torch.float32, torch.float32])
-    ex = StreamExecutor(g, chunk_size=65536, device="cuda")
-    t0 = time.perf_counter()
-    L, R = (v.cpu().numpy() for v in ex.run(iq))
-    dt = time.perf_counter() - t0
+    outs, rates, _, _ = two_modes(
+        torch, "WfmRcvPll",
+        lambda: StreamExecutor(chain_graph(
+            torch, [WfmRcvPll(QUAD_RATE, AUDIO_DECIM)], torch.complex64,
+            [torch.float32, torch.float32]), chunk_size=65536, device="cuda"),
+        (torch.from_numpy(iq).to("cuda"),), n)
+    L, R = (v.cpu().numpy() for v in outs[0])
 
     def band_power(sig, f):
         spec = np.abs(np.fft.rfft(sig * np.hanning(len(sig)))) ** 2
@@ -1004,9 +1139,9 @@ def run_fm_family(torch):
 
     sep_l = band_power(L[2000:], 700) / band_power(L[2000:], 2200)
     sep_r = band_power(R[2000:], 2200) / band_power(R[2000:], 700)
-    print(f"WfmRcvPll: {n} samples in {dt:.3f} s = {n / dt / 1e6:.2f} "
-          f"Msamples/s; left 700/2200 Hz power {sep_l:.1f}x, right 2200/700 Hz "
-          f"{sep_r:.1f}x (gate 4x each)", flush=True)
+    print(f"WfmRcvPll: {n} samples at {rates['eager']:.2f} Msamples/s; left "
+          f"700/2200 Hz power {sep_l:.1f}x, right 2200/700 Hz {sep_r:.1f}x "
+          f"(gate 4x each)", flush=True)
     if L.shape != (n // AUDIO_DECIM,) or not (sep_l > 4 and sep_r > 4):
         fail("WfmRcvPll did not separate left from right")
 
@@ -1131,37 +1266,37 @@ def run_pfb_graphs(torch):
                          .astype(np.complex64)).to("cuda")
 
     blk = PfbChannelizer(PFB_CHANNELS)
-    g = chain_graph(torch, [blk], torch.complex64)
-    ex = StreamExecutor(g, chunk_size=1 << 18, device="cuda")
-    t0 = time.perf_counter()
-    y = ex.run(x)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    outs, rates, _, _ = two_modes(
+        torch, f"PfbChannelizer({PFB_CHANNELS}) graph",
+        lambda: StreamExecutor(chain_graph(
+            torch, [PfbChannelizer(PFB_CHANNELS)], torch.complex64),
+            chunk_size=1 << 18, device="cuda"), (x,), n)
+    y = outs[0]
     hist = blk.history - 1
     whole = pfb.channelize(torch.cat([x.new_zeros(hist), x]), blk.taps,
                            PFB_CHANNELS)
     _, err = errors(y, whole)
-    print(f"PfbChannelizer({PFB_CHANNELS}) graph: {n} samples in {dt:.3f} s = "
-          f"{n / dt / 1e6:.1f} Msamples/s (chunk {1 << 18}); chunked vs "
+    print(f"PfbChannelizer({PFB_CHANNELS}) graph: {n} samples at "
+          f"{rates['eager']:.1f} Msamples/s (chunk {1 << 18}); chunked vs "
           f"one-call max_rel_err={err:.3e} (tol 1e-5)", flush=True)
     if y.shape != (n // PFB_CHANNELS, PFB_CHANNELS) or not err <= 1e-5:
         fail("PfbChannelizer through the executor differs from channelize")
 
     blk = PfbArbResampler(160 / 147)
     chunk = 147 * 2048
-    g = chain_graph(torch, [blk], torch.complex64, [torch.complex64])
-    ex = StreamExecutor(g, chunk_size=chunk, device="cuda")
-    t0 = time.perf_counter()
-    y = ex.run(x)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    outs, rates, _, _ = two_modes(
+        torch, "PfbArbResampler(160/147) graph",
+        lambda: StreamExecutor(chain_graph(
+            torch, [PfbArbResampler(160 / 147)], torch.complex64,
+            [torch.complex64]), chunk_size=chunk, device="cuda"), (x,), n)
+    y = outs[0]
     padded = -(-n // 147) * 147
     xin = torch.cat([x.new_zeros(blk.history - 1), x, x.new_zeros(padded - n)])
     whole = pfb.arb_resample(xin, blk.taps, Fraction(160, 147), 32)[:y.shape[0]]
     _, err = errors(y, whole)
-    print(f"PfbArbResampler(160/147) graph: {n} samples in {dt:.3f} s = "
-          f"{n / dt / 1e6:.1f} Msamples/s (chunk {chunk}); chunked vs one-call "
-          f"max_rel_err={err:.3e} (tol 1e-5)", flush=True)
+    print(f"PfbArbResampler(160/147) graph: {n} samples at "
+          f"{rates['eager']:.1f} Msamples/s (chunk {chunk}); chunked vs "
+          f"one-call max_rel_err={err:.3e} (tol 1e-5)", flush=True)
     if y.shape[0] != int(n * Fraction(160, 147)) or not err <= 1e-5:
         fail("PfbArbResampler through the executor differs from arb_resample")
 
@@ -1193,6 +1328,25 @@ def run_pfb_graphs(torch):
         fail("channelize -> synthesize did not reconstruct the input")
 
 
+def graph_sizes(torch, ex) -> str:
+    """Device events of one replay of each of an executor's captured graphs
+    (its nodes that ran: kernels, copies, fills), from torch.profiler.  The
+    replay runs on the executor's static buffers; the next run copies the
+    executor's state back in."""
+    sizes = []
+    for key, graph in ex._device_loop.graphs().items():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        where = f"{'top' if key[0] is None else 'emission'} piece {key[1]}"
+        sizes.append(f"{where}: {n} device events a replay" if n else
+                     f"{where}: not measured (the profiler saw no event)")
+    return "; ".join(sizes)
+
+
 def run_sequential_loops(torch):
     """Phase 7d: the per-symbol and per-sample recursions on the card.  Each
     is a Python loop of one-element kernels: the rates are the host's."""
@@ -1221,17 +1375,18 @@ def run_sequential_loops(torch):
         blk = pfb_blocks.PfbClockSync(float(sps), 2 * np.pi / 100, mf, nfilts)
         return chain_graph(torch, [blk], torch.complex64, [torch.complex64])
 
-    got = {}
-    for device in ("cpu", "cuda"):
-        ex = StreamExecutor(sync_graph(), chunk_size=4000, device=device)
-        t0 = time.perf_counter()
-        got[device] = ex.run(wave).cpu().numpy()
-        dt = time.perf_counter() - t0
-        if device == "cuda":
-            print(f"PfbClockSync, variable-rate executor: {SYNC_SAMPLES} "
-                  f"samples -> {len(got[device])} symbols in {dt:.2f} s = "
-                  f"{len(got[device]) / dt:.1f} symbols/s (chunk 4000, "
-                  f"host-bound loop)", flush=True)
+    got = {"cpu": StreamExecutor(sync_graph(), chunk_size=SYNC_CHUNK,
+                                 device="cpu").run(wave).numpy()}
+    outs, _, loop_ex, _ = two_modes(
+        torch, f"PfbClockSync, variable-rate executor, {SYNC_SAMPLES} samples "
+        f"(chunk {SYNC_CHUNK})",
+        lambda: StreamExecutor(sync_graph(), chunk_size=SYNC_CHUNK,
+                               device="cuda"),
+        (torch.from_numpy(wave).to("cuda"),), lambda y: y.shape[0],
+        unit="symbols/s", per=1.0)
+    got["cuda"] = outs[0].cpu().numpy()
+    print(f"PfbClockSync under device_loop: "
+          f"{graph_sizes(torch, loop_ex)}", flush=True)
     dec = {d: np.sign(v.real) for d, v in got.items()}
     acc = bit_accuracy(dec["cuda"], bits)
     same = dec["cuda"].shape == dec["cpu"].shape \
@@ -1266,19 +1421,76 @@ def run_sequential_loops(torch):
          * (1 + 0.5 * np.sin(np.arange(LOOP_SAMPLES) * 0.01))).astype(np.complex64)
     for name, make in (("Agc", lambda: analog.Agc(1e-3, 1.0, 0.5)),
                        ("PllRefout", lambda: analog.PllRefout(0.05, 0.5, -0.5))):
-        ys = {}
-        for device in ("cpu", "cuda"):
-            g = chain_graph(torch, [make()], torch.complex64, [torch.complex64])
-            ex = StreamExecutor(g, chunk_size=LOOP_SAMPLES, device=device)
-            t0 = time.perf_counter()
-            ys[device] = ex.run(x).cpu().numpy()
-            dt = time.perf_counter() - t0
+        def build(device):
+            return StreamExecutor(chain_graph(
+                torch, [make()], torch.complex64, [torch.complex64]),
+                chunk_size=LOOP_CHUNK, device=device)
+
+        ys = {"cpu": build("cpu").run(x).numpy()}
+        outs, rates, _, _ = two_modes(
+            torch, f"{name}, {LOOP_SAMPLES} samples (chunk {LOOP_CHUNK})",
+            lambda: build("cuda"), (torch.from_numpy(x).to("cuda"),),
+            LOOP_SAMPLES, unit="samples/s", per=1.0)
+        ys["cuda"] = outs[0].cpu().numpy()
         err = float(np.abs(ys["cuda"] - ys["cpu"]).max())
-        print(f"{name}: {LOOP_SAMPLES} samples in {dt:.2f} s = "
-              f"{LOOP_SAMPLES / dt:.1f} samples/s (host-bound loop); card vs "
-              f"CPU max_abs_err={err:.3e} (tol 1e-3)", flush=True)
+        print(f"{name}: {LOOP_SAMPLES} samples at {rates['eager']:.1f} "
+              f"samples/s eager (host-bound loop); card vs CPU "
+              f"max_abs_err={err:.3e} (tol 1e-3)", flush=True)
         if not err <= 1e-3:
             fail(f"{name} on the card disagrees with the CPU run")
+
+
+OVERHEAD_BLOCKS = 20       # benchmarks/executor_overhead_bench.py's chain
+OVERHEAD_CHUNK = 4096
+OVERHEAD_CHUNKS = 256
+
+
+def run_executor_overhead(torch):
+    """Phase 8: the executor's own cost a chunk, on a chain of 20 Copy
+    blocks (they launch nothing: the step's work is the executor's), chunk
+    4096, 256 chunks, eagerly and under device_loop."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks.stream import Copy
+
+    x = torch.arange(OVERHEAD_CHUNKS * OVERHEAD_CHUNK, dtype=torch.float32,
+                     device="cuda")
+    outs, rates, loop_ex, _ = two_modes(
+        torch, f"executor overhead, {OVERHEAD_BLOCKS} Copy blocks",
+        lambda: StreamExecutor(chain_graph(
+            torch, [Copy() for _ in range(OVERHEAD_BLOCKS)], torch.float32),
+            chunk_size=OVERHEAD_CHUNK, device="cuda"),
+        (x,), OVERHEAD_CHUNKS, unit="chunks/s", per=1.0)
+    if not torch.equal(outs[0], x):
+        fail("the Copy chain changed its input")
+    us = {m: 1e6 / r for m, r in rates.items()}
+    print(f"executor overhead, {OVERHEAD_BLOCKS} Copy blocks, chunk "
+          f"{OVERHEAD_CHUNK}: eager {us['eager']:.1f} us a chunk, device_loop "
+          f"{us['device_loop']:.1f} us a chunk (host clock around run() of "
+          f"{OVERHEAD_CHUNKS} chunks, synchronized)", flush=True)
+
+    # where a device_loop chunk's host time goes: each part alone, 1000
+    # calls on the host clock without a synchronize between them (they run
+    # on the executor's static buffers; the next run copies its state in)
+    loop = loop_ex._device_loop
+    graph = next(iter(loop.graphs().values()))
+    chunk = x[:OVERHEAD_CHUNK]
+    parts = {"copy in": lambda: loop.inputs[0].copy_(chunk),
+             "replay": graph.replay,
+             "copy out": lambda: loop.inputs[0].clone(),
+             "whole step": lambda: loop.step(chunk)}
+    cost = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        cost[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    print("device_loop host cost a chunk, 20 Copy blocks: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in cost.items())
+          + " (1000 calls each, host clock, no synchronize)", flush=True)
+    return us
 
 
 def main() -> int:
@@ -1338,7 +1550,10 @@ def main() -> int:
     run_pfb_graphs(torch)
     run_sequential_loops(torch)
 
-    # phase 8: report, for each kernel the case the main path launches most
+    # phase 8: the executor's own cost a chunk
+    run_executor_overhead(torch)
+
+    # phase 9: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),

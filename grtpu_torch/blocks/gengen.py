@@ -387,6 +387,9 @@ class NoiseSource(Block):
             g.manual_seed(int(self.seed))
         return g
 
+    def generators(self, device):
+        return (self._generator(torch.device(device)),)
+
     def apply(self, state, n: int):
         dev = state.device
         gen = self._generator(dev)

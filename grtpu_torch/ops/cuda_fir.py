@@ -39,7 +39,10 @@ launches the kernel, building it at first use, or raises.
 :func:`fir_toeplitz_ref` and :func:`fir_decim_mma_ref` are the plain forms
 of the tensor-core routes' own arithmetic and layout.  ``launches`` counts
 the kernel launches, one per launch under the name of the entry that was
-called, for callers that must show a path went through the kernels.
+called, for callers that must show a path went through the kernels.  A
+launch made while a CUDA graph is captured launches nothing: inside
+:func:`recording_launches` it goes to the record instead, and each replay of
+the graph adds the record to ``launches`` (:func:`add_launches`).
 
 ``tile_rows`` is accepted for grtpu signature compatibility; the Hopper
 kernels size their tiles from shared memory and the batch instead.
@@ -47,6 +50,7 @@ kernels size their tiles from shared memory and the batch instead.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -62,6 +66,9 @@ LANE = 128
 launches = {"fir_tile_fwd": 0, "fir_toeplitz_fwd": 0, "fir_decim_fwd": 0,
             "fir_decim_mma_fwd": 0, "fir_cascade_fwd": 0,
             "fir_cascade_mma_fwd": 0}
+
+# Open records of CUDA-graph captures (recording_launches), innermost last.
+_recording = []
 
 _PRECISION_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
 _THREADS = 256           # fir_tile_fwd: threads a block, 8 outputs each
@@ -483,7 +490,26 @@ def _check(err: int, name: str):
 
         raise RuntimeError(f"{name} launch failed: "
                            + library().fir_error_string(err).decode())
-    launches[name] += 1
+    (_recording[-1] if _recording else launches)[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the launches made inside the block (a CUDA-graph capture) in
+    the dict this yields, not in ``launches``: capture launches nothing.
+    Hand the record to :func:`add_launches` at each replay of the graph."""
+    record = dict.fromkeys(launches, 0)
+    _recording.append(record)
+    try:
+        yield record
+    finally:
+        _recording.pop()
+
+
+def add_launches(record):
+    """Count one replay of a graph whose capture made ``record``."""
+    for name, n in record.items():
+        launches[name] += n
 
 
 def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False,

@@ -279,6 +279,15 @@ def fir_filterbank(x: torch.Tensor, tapbank,
 
 
 # -------------------------------------------------------------------- rotator
+def _phase_on(phase, device) -> torch.Tensor:
+    """A carried phase (tensor or host number) as float32 on ``device``; a
+    host number is filled in on the device, with no host-to-device copy, so
+    the call stays inside a CUDA-graph capture."""
+    if isinstance(phase, torch.Tensor):
+        return phase.to(device=device, dtype=torch.float32)
+    return torch.full((), float(phase), dtype=torch.float32, device=device)
+
+
 def phase_ramp(phase, step: float, n: int, device) -> torch.Tensor:
     """float32 ``phase + step * arange(n)``, rounded as grtpu's compiled
     step rounds it: the integer ramp is widened to float32 and multiplied by
@@ -289,7 +298,7 @@ def phase_ramp(phase, step: float, n: int, device) -> torch.Tensor:
     long ramp reaches 1e4 rad and more, where one float32 step is 1e-3 rad,
     so the order of rounding is what the two packages' agreement rests on."""
     k = torch.arange(n, dtype=torch.int32, device=device).to(torch.float64)
-    ph = torch.as_tensor(phase, dtype=torch.float32, device=device)
+    ph = _phase_on(phase, device)
     step32 = torch.tensor(float(step), dtype=torch.float32).item()
     return (ph.to(torch.float64) + step32 * k).to(torch.float32)
 
@@ -297,7 +306,7 @@ def phase_ramp(phase, step: float, n: int, device) -> torch.Tensor:
 def phase_advance(phase, total: float, device) -> torch.Tensor:
     """float32 ``(phase + total) mod 2 pi`` (floored), the carried phase
     after a chunk; ``total`` is the host float ``step * n``."""
-    ph = torch.as_tensor(phase, dtype=torch.float32, device=device)
+    ph = _phase_on(phase, device)
     return torch.remainder(ph + float(total), 2 * np.pi)
 
 

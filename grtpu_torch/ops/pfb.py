@@ -189,6 +189,15 @@ def channelize(x: torch.Tensor, proto_taps: np.ndarray, nchan: int,
     return (acc * tw).to(torch.complex64)
 
 
+@functools.lru_cache(maxsize=32)
+def _synth_bank(taps_bytes: bytes, taps_dtype: str, N: int,
+                device: torch.device) -> torch.Tensor:
+    """The synthesizer's (N, kp) polyphase bank, each row reversed, on
+    ``device``."""
+    bank = polyphase_taps(np.frombuffer(taps_bytes, dtype=taps_dtype), N)
+    return torch.from_numpy(bank[:, ::-1].copy()).to(device)
+
+
 def synthesize(chans: torch.Tensor, proto_taps: np.ndarray) -> torch.Tensor:
     """Polyphase synthesis filterbank: (T + kp - 1, N) channel matrix (with
     kp-1 history rows) -> (T*N,) stream.
@@ -198,11 +207,11 @@ def synthesize(chans: torch.Tensor, proto_taps: np.ndarray) -> torch.Tensor:
     kp*N/2-ish group delay.
     """
     T_in, N = chans.shape
-    bank = polyphase_taps(np.asarray(proto_taps), N)
-    kp = bank.shape[1]
+    proto = np.ascontiguousarray(proto_taps)
+    bk = _synth_bank(proto.tobytes(), proto.dtype.str, N, chans.device)
+    kp = bk.shape[1]
     T = T_in - (kp - 1)
     v = torch.fft.ifft(chans, dim=1).T * N  # (N, T_in) branch streams
-    bk = torch.from_numpy(bank[:, ::-1].copy()).to(chans.device)
     # s[p, t] = sum_j bk[p, j] v[p, t + j]: kp shifted multiply-adds (the
     # sum grtpu takes over a gathered (N, T, kp) window)
     s = None

@@ -27,9 +27,14 @@ own npz format (``arr_j`` arrays under canonical, topology-relative
 ``__paths__``), so a flowgraph checkpointed by grtpu resumes here, and the
 reverse.
 
-Not ported yet (each raises ``NotImplementedError`` naming its item in
-ROADMAP.md's list "Executor features still to port"): stream tags in
-flight, ``device_loop``, ``fuse_firs`` and ``debug_taps``.
+``run(..., device_loop=True)`` runs the same step from static buffers and,
+on a CUDA device, replays it from CUDA graphs (:mod:`grtpu_torch.runtime.
+device_loop`); ``fuse_firs`` composes adjacent FIR filters before the
+topology is computed (:mod:`grtpu_torch.runtime.optimize`); ``debug_taps``
+keeps every top-level edge's stream in :attr:`StreamExecutor.edge_data`.
+
+Not ported yet (raises ``NotImplementedError`` naming its item in
+ROADMAP.md's list "Executor features still to port"): stream tags in flight.
 """
 
 from __future__ import annotations
@@ -48,9 +53,6 @@ from grtpu_torch.utils.device import resolve
 
 _PORT_ITEMS = {
     "stream tags": 2,
-    "device_loop": 3,
-    "fuse_firs": 4,
-    "debug_taps": 5,
 }
 
 
@@ -150,7 +152,10 @@ class StreamExecutor:
       device: the torch device that holds the state and runs every block;
         the card (``cuda``) when not given.
         Host inputs are moved there at ``run``/``step`` entry.
-      debug_taps, fuse_firs: grtpu options not ported yet (they raise).
+      debug_taps: keep every top-level edge's stream of every step in
+        :attr:`edge_data` (write them out with :meth:`dump_debug_taps`).
+      fuse_firs: collapse chains of adjacent FirFilter blocks into composed
+        filters before the rates are computed.
     """
 
     def __init__(
@@ -163,12 +168,14 @@ class StreamExecutor:
         debug_taps: bool = False,
         fuse_firs: bool = False,
     ):
-        if debug_taps:
-            raise _not_ported("debug_taps")
-        if fuse_firs:
-            raise _not_ported("fuse_firs")
         self.flat = graph.flatten() if isinstance(graph, Graph) else graph
+        if fuse_firs:
+            from grtpu_torch.runtime.optimize import fuse_fir_chains
+
+            self.flat = fuse_fir_chains(self.flat)
         self.order = self.flat.topological_order()
+        self.debug_taps = debug_taps
+        self.edge_data: Dict[str, List[torch.Tensor]] = {}
         for b in self.order:
             if b.emits_tags:
                 raise _not_ported("stream tags")
@@ -203,6 +210,7 @@ class StreamExecutor:
         self._build_emit_specs()
         self.state = self._make_state()
         self.sink_data: Dict[str, tuple] = {}
+        self._device_loop = None  # run(device_loop=True)'s static buffers
         # Stale-parameter guard: snapshot block versions; step() raises if
         # a setter touched a block after this executor was built.
         self._global_version_snap = Block._global_version[0]
@@ -459,6 +467,63 @@ class StreamExecutor:
         return x.to(device=self.device, dtype=pad.port.dtype)
 
     # ------------------------------------------------------------------ step
+    def _apply_block(self, b: Block, ctx, edge_vals, ext_inputs):
+        """Gather b's inputs (each with its halo tail prepended, the tail
+        advanced in ``ctx``), apply b and keep its new state in ``ctx``.
+        Returns (inputs, raw apply outputs)."""
+        ups = self._ups[b.uid]
+        ins = []
+        for i in range(len(b.in_ports)):
+            e = ups[i]
+            src = e.src.block
+            v = (ext_inputs[src.index] if isinstance(src, Pad)
+                 else edge_vals[_edge_key(e)])
+            if b.history > 1:
+                k = _edge_key(e)
+                full = torch.cat([ctx["tails"][k], v], dim=0)
+                ctx["tails"][k] = full[full.shape[0] - (b.history - 1):]
+                v = full
+            ins.append(v)
+        uid = str(b.uid)
+        if not b.in_ports:
+            n_out = self.block_nin[b.uid] // b.decim * b.interp
+            if b.source_takes_device:
+                new_s, outs = b.apply(ctx["blocks"][uid], n_out,
+                                      device=self.device)
+            else:
+                new_s, outs = b.apply(ctx["blocks"][uid], n_out)
+        else:
+            new_s, outs = b.apply(ctx["blocks"][uid], *ins)
+        ctx["blocks"][uid] = new_s
+        return ins, outs
+
+    @staticmethod
+    def _fixed_outputs(b: Block, outs) -> tuple:
+        if not isinstance(outs, (tuple, list)):
+            outs = (outs,)
+        if len(outs) != len(b.out_ports):
+            raise ValueError(
+                f"{b.name}: apply returned {len(outs)} outputs, "
+                f"declared {len(b.out_ports)} ports")
+        return tuple(outs)
+
+    @staticmethod
+    def _vr_outputs(v: Block, outs):
+        """A variable-rate apply's (y_padded, n_valid) as (ys tuple,
+        n_valid)."""
+        if not (isinstance(outs, (tuple, list)) and len(outs) == 2):
+            raise ValueError(
+                f"{v.name}: variable-rate apply must return "
+                f"(state, (y_padded, n_valid))")
+        ys, n_valid = outs
+        if not isinstance(ys, (tuple, list)):
+            ys = (ys,)
+        if len(ys) != len(v.out_ports):
+            raise ValueError(
+                f"{v.name}: variable-rate apply returned {len(ys)} "
+                f"padded outputs, declared {len(v.out_ports)} ports")
+        return tuple(ys), n_valid
+
     def _run_segment(self, owner: Optional[Block], ctx, edge_vals,
                      ext_inputs, caps):
         """Run the blocks owned by ``owner`` in topological order over one
@@ -466,43 +531,12 @@ class StreamExecutor:
         states, tails, FIFOs, emission buffers and counts) in place.
         ``edge_vals`` holds this segment's edge values."""
         for b in self._segment.get(None if owner is None else owner.uid, ()):
-            ups = self._ups[b.uid]
-            ins = []
-            for i in range(len(b.in_ports)):
-                e = ups[i]
-                src = e.src.block
-                v = (ext_inputs[src.index] if isinstance(src, Pad)
-                     else edge_vals[_edge_key(e)])
-                if b.history > 1:
-                    k = _edge_key(e)
-                    full = torch.cat([ctx["tails"][k], v], dim=0)
-                    ctx["tails"][k] = full[full.shape[0] - (b.history - 1):]
-                    v = full
-                ins.append(v)
-            uid = str(b.uid)
-            if not b.in_ports:
-                n_out = self.block_nin[b.uid] // b.decim * b.interp
-                if b.source_takes_device:
-                    new_s, outs = b.apply(ctx["blocks"][uid], n_out,
-                                          device=self.device)
-                else:
-                    new_s, outs = b.apply(ctx["blocks"][uid], n_out)
-            else:
-                new_s, outs = b.apply(ctx["blocks"][uid], *ins)
-            ctx["blocks"][uid] = new_s
+            ins, outs = self._apply_block(b, ctx, edge_vals, ext_inputs)
             if b.variable_rate:
-                if not (isinstance(outs, (tuple, list)) and len(outs) == 2):
-                    raise ValueError(
-                        f"{b.name}: variable-rate apply must return "
-                        f"(state, (y_padded, n_valid))")
-                self._push_and_drain(b, ctx, outs, ext_inputs, caps)
+                self._push_and_drain(b, ctx, self._vr_outputs(b, outs),
+                                     ext_inputs, caps)
                 continue
-            if not isinstance(outs, (tuple, list)):
-                outs = (outs,)
-            if len(outs) != len(b.out_ports):
-                raise ValueError(
-                    f"{b.name}: apply returned {len(outs)} outputs, "
-                    f"declared {len(b.out_ports)} ports")
+            outs = self._fixed_outputs(b, outs)
             if not b.out_ports and ins:
                 if owner is None:
                     caps[b.name] = tuple(ins)
@@ -524,12 +558,6 @@ class StreamExecutor:
         lockstep on a shared count."""
         n_emit = self.vr_emit[v.uid]
         ys, n_valid = vr_out
-        if not isinstance(ys, (tuple, list)):
-            ys = (ys,)
-        if len(ys) != len(v.out_ports):
-            raise ValueError(
-                f"{v.name}: variable-rate apply returned {len(ys)} "
-                f"padded outputs, declared {len(v.out_ports)} ports")
         bufs, fill_t = ctx["fifo"][v.name]
         fill = int(fill_t)
         n_pad = ys[0].shape[0]
@@ -589,6 +617,10 @@ class StreamExecutor:
             for name, keys in self._vr_sink_keys.items():
                 caps[name] = tuple(ctx["emit"][k] for k in keys)
             caps["__vr_counts__"] = dict(ctx["ecnt"])
+        if self.debug_taps:
+            # every top-level edge value (VR-segment edges live inside the
+            # drain loop), as grtpu exposes them
+            caps["__edges__"] = dict(edge_vals)
         new_state = {"blocks": ctx["blocks"], "tails": ctx["tails"],
                      "fifo": ctx["fifo"]}
         return new_state, (tuple(pad_outs), caps)
@@ -628,35 +660,54 @@ class StreamExecutor:
         rational length (fixed-rate pads) or to the exact emission count
         (variable-rate pads; items still queued in a FIFO at the end — less
         than one emission — stay in the carried state).  A graph without
-        input pads runs ``steps`` steps."""
-        if device_loop:
-            raise _not_ported("device_loop")
+        input pads runs ``steps`` steps.
+
+        ``device_loop=True`` gives the same result from static buffers: the
+        state is copied in at entry and out at exit, and on a CUDA device
+        each step after a chunk's eager warm-up is replayed from CUDA graphs
+        captured once per executor (:mod:`grtpu_torch.runtime.device_loop`),
+        with one host read per push of a variable-rate block.  A capture
+        that fails raises, naming the block whose ``apply`` broke it where
+        that can be found; a run that raises leaves the state as it was at
+        entry.  It cannot carry ``debug_taps``."""
         n_pads = len(self.flat.in_pads)
         if len(ext_inputs) != n_pads:
             raise ValueError(f"graph has {n_pads} input pads, got {len(ext_inputs)}")
+        if n_pads == 0 and steps is None:
+            raise ValueError("source-driven graph needs steps=")
+        if device_loop:
+            self._check_versions()
+            if self.debug_taps:
+                raise ValueError("device_loop does not support debug_taps")
+            if self._device_loop is None:
+                from grtpu_torch.runtime.device_loop import DeviceLoop
+
+                self._device_loop = DeviceLoop(self)
+            step = self._device_loop.load(self.state)
+        else:
+            step = self.step
         outs_accum: List[List[torch.Tensor]] = [[] for _ in self.flat.out_pads]
         sink_accum: Dict[str, List[tuple]] = {}
         counts_accum: List[Dict[str, int]] = []
+        n = None
         if n_pads == 0:
-            if steps is None:
-                raise ValueError("source-driven graph needs steps=")
-            for _ in range(steps):
-                self._collect(*self.step(), outs_accum, sink_accum,
-                              counts_accum)
-            return self._finalize(outs_accum, sink_accum, None, counts_accum)
-
-        xs = [self._ingest(x, pad) for x, pad in zip(ext_inputs, self.flat.in_pads)]
-        n = xs[0].shape[0]
-        cs = self.chunk_size
-        nchunks = -(-n // cs)
-        pad_to = nchunks * cs
-        if pad_to != n:
-            xs = [torch.cat([x, x.new_zeros((pad_to - n,) + x.shape[1:])])
-                  for x in xs]
-        for c in range(nchunks):
-            chunk = tuple(x[c * cs:(c + 1) * cs] for x in xs)
-            self._collect(*self.step(*chunk), outs_accum, sink_accum,
-                          counts_accum)
+            chunks = [()] * steps
+        else:
+            xs = [self._ingest(x, pad)
+                  for x, pad in zip(ext_inputs, self.flat.in_pads)]
+            n = xs[0].shape[0]
+            cs = self.chunk_size
+            nchunks = -(-n // cs)
+            pad_to = nchunks * cs
+            if pad_to != n:
+                xs = [torch.cat([x, x.new_zeros((pad_to - n,) + x.shape[1:])])
+                      for x in xs]
+            chunks = (tuple(x[c * cs:(c + 1) * cs] for x in xs)
+                      for c in range(nchunks))
+        for chunk in chunks:
+            self._collect(*step(*chunk), outs_accum, sink_accum, counts_accum)
+        if device_loop:
+            self.state = self._device_loop.unload()
         return self._finalize(outs_accum, sink_accum, n, counts_accum)
 
     def stream(self, chunk_iter):
@@ -676,12 +727,14 @@ class StreamExecutor:
                     for i, p in enumerate(pads))
             yield pads if len(pads) != 1 else pads[0]
 
-    @staticmethod
-    def _collect(pads, sinks, outs_accum, sink_accum, counts_accum):
+    def _collect(self, pads, sinks, outs_accum, sink_accum, counts_accum):
         for i, v in enumerate(pads):
             outs_accum[i].append(v)
         for name, vals in sinks.items():
-            if name == "__vr_counts__":
+            if name == "__edges__":
+                for k, ev in vals.items():
+                    self.edge_data.setdefault(k, []).append(ev)
+            elif name == "__vr_counts__":
                 counts_accum.append(vals)
             else:
                 sink_accum.setdefault(name, []).append(vals)
@@ -749,6 +802,22 @@ class StreamExecutor:
     def add_tags(self, pad_index: int, tags: Sequence[Tag]):
         """Attach stream tags to an input pad's stream (not ported yet)."""
         raise _not_ported("stream tags")
+
+    def dump_debug_taps(self, directory: str) -> Dict[str, str]:
+        """Write every edge's captured stream to ``<dir>/<edge>.dat`` (raw
+        native items, grtpu's file names) — the log-every-stage debugging
+        workflow.  Returns {edge key: path}."""
+        import os
+
+        os.makedirs(directory, exist_ok=True)
+        paths = {}
+        for k, parts in self.edge_data.items():
+            arr = torch.cat(parts, dim=0).cpu().numpy()
+            safe = k.replace("/", "_").replace(">", "").replace(".", "_")
+            path = os.path.join(directory, safe + ".dat")
+            arr.tofile(path)
+            paths[k] = path
+        return paths
 
     # ------------------------------------------------------------------ ckpt
     def _canonical_leaf_paths(self):
