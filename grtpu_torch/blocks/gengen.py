@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from grtpu_torch.ops import noise
 from grtpu_torch.runtime.block import Block, Port, torch_dtype
 from grtpu_torch.utils.device import resolve
 
@@ -356,12 +357,12 @@ class NullSource(Block):
 class NoiseSource(Block):
     """Gaussian/uniform noise source (gr_noise_source_X + gr_random).
 
-    The samples come from a ``torch.Generator`` made from ``seed`` on the
-    device the block runs on, so a run is reproducible from the seed on a
-    given device.  The carried state is the count of samples drawn; the
-    generator itself is not part of a checkpoint (grtpu carries a JAX PRNG
-    key instead: the two packages' noise streams differ, and a checkpoint of
-    a graph that holds a NoiseSource does not move between them).
+    Sample i of the stream is a function of (seed, i) alone
+    (``ops.noise``): the carried state is the count of samples drawn, so a
+    run resumed from a checkpoint continues the stream bit for bit, on any
+    device and under ``run(device_loop=True)``.  grtpu carries a JAX PRNG
+    key instead: the two packages' noise streams differ, and a checkpoint
+    of a graph that holds a NoiseSource does not move between them.
     """
 
     def __init__(self, kind: str = "gaussian", amplitude: float = 1.0,
@@ -374,37 +375,21 @@ class NoiseSource(Block):
         self.amplitude = amplitude
         self.seed = seed
         self._dtype = self.out_ports[0].dtype
-        self._gens = {}
 
     def init_state(self):
-        self._gens = {}  # a new run starts the stream from the seed again
         return torch.zeros((), dtype=torch.int64)
 
-    def _generator(self, device) -> torch.Generator:
-        g = self._gens.get(device)
-        if g is None:
-            g = self._gens[device] = torch.Generator(device=device)
-            g.manual_seed(int(self.seed))
-        return g
-
-    def generators(self, device):
-        return (self._generator(torch.device(device)),)
-
     def apply(self, state, n: int):
-        dev = state.device
-        gen = self._generator(dev)
-        shape = (n, 2) if self._dtype.is_complex else (n,)
+        cplx = self._dtype.is_complex
         if self.kind == "gaussian":
-            r = torch.randn(shape, generator=gen, device=dev)
-            amp = (self.amplitude / np.sqrt(2) if self._dtype.is_complex
-                   else self.amplitude)
+            re, im = noise.normal_pair(self.seed, state, n)
+            amp = self.amplitude / np.sqrt(2) if cplx else self.amplitude
         else:
-            r = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+            re = noise.uniform(self.seed, state, n, 0) * 2.0 - 1.0
+            im = noise.uniform(self.seed, state, n, 1) * 2.0 - 1.0 \
+                if cplx else None
             amp = self.amplitude
-        if self._dtype.is_complex:
-            y = torch.complex(r[:, 0], r[:, 1]) * amp
-        else:
-            y = r * amp
+        y = torch.complex(re, im) * amp if cplx else re * amp
         return state + n, y.to(self._dtype)
 
 

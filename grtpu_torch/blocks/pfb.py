@@ -392,7 +392,10 @@ def pfb_clock_sync_chunked(x: torch.Tensor, state, sps: float,
     t_iota = torch.arange(chunk, dtype=torch.float32, device=dev)
     grid = (np.arange(Tc, dtype=np.int64) * P) // Q
     starts = grid[::chunk]
-    irel = torch.from_numpy(grid.reshape(-1, chunk) - starts[:, None]).to(dev)
+    # the same grid made on the device (no host-to-device copy a call, so a
+    # CUDA graph can capture the call)
+    gd = torch.arange(Tc, dtype=torch.int64, device=dev) * P // Q
+    irel = gd.reshape(-1, chunk) - gd[::chunk, None]
     need = int(starts[-1]) + nspan
     xr = _bf16(torch.cat([x, x.new_zeros((max(0, need - x.shape[0]),))]))
 

@@ -2,8 +2,9 @@
 of ``grtpu.digital.blocks``).
 
 Static-rate wrappers over grtpu_torch.digital.loops: CostasLoop,
-BinarySlicer, FourLevelSlicer, DiffEncoder/DiffDecoder/DiffPhasor,
-ConstellationDecoder — plus first-class variable-rate clock recovery
+FllBandEdge, BinarySlicer, FourLevelSlicer, DiffEncoder/DiffDecoder/
+DiffPhasor, ConstellationDecoder, ConstellationReceiver, BytesToSyms,
+MpskReceiver — plus first-class variable-rate clock recovery
 (ClockRecoveryMM{FF,CC}), which the StreamExecutor runs through its FIFO
 emission machinery (the analog of digital_clock_recovery_mm_cc.cc's
 variable consume, lib/digital_clock_recovery_mm_cc.cc:160-217).
@@ -37,6 +38,29 @@ class CostasLoop(Block):
     def apply(self, state, x):
         y, st = loops.costas_loop(x, state, self.loop_bw, self.order,
                                   self.gains)
+        return st, y
+
+
+class FllBandEdge(Block):
+    """digital_fll_band_edge_cc."""
+
+    def __init__(self, samps_per_sym: float, rolloff: float,
+                 filter_size: int, loop_bw: float, gains=None, name=None):
+        self.in_ports = (Port(torch.complex64),)
+        self.out_ports = (Port(torch.complex64),)
+        self.history = filter_size
+        super().__init__(name)
+        self.sps, self.rolloff = samps_per_sym, rolloff
+        self.filter_size, self.loop_bw = filter_size, loop_bw
+        self.gains = gains
+
+    def init_state(self):
+        return loops.fll_init_state("cpu")
+
+    def apply(self, state, x):
+        y, st = loops.fll_band_edge(x, state, self.sps, self.rolloff,
+                                    self.filter_size, self.loop_bw,
+                                    self.gains)
         return st, y
 
 
@@ -132,6 +156,41 @@ class ConstellationDecoder(Block):
         return state, self.constellation.decision_maker(x).to(torch.uint8)
 
 
+class ConstellationReceiver(Block):
+    """digital_constellation_receiver_cb: loop + decisions (symbol out)."""
+
+    def __init__(self, constellation: Constellation, loop_bw: float,
+                 name=None):
+        self.in_ports = (Port(torch.complex64),)
+        self.out_ports = (Port(torch.uint8),)
+        super().__init__(name)
+        self.constellation = constellation
+        self.loop_bw = loop_bw
+
+    def init_state(self):
+        return loops.costas_init_state("cpu")
+
+    def apply(self, state, x):
+        syms, _, st = loops.constellation_receiver(
+            x, state, self.constellation, self.loop_bw)
+        return st, syms.to(torch.uint8)
+
+
+class BytesToSyms(Block):
+    """gr_bytes_to_syms: byte -> 8 NRZ float symbols (+1/-1), MSB first."""
+
+    def __init__(self, name=None):
+        self.in_ports = (Port(torch.uint8),)
+        self.out_ports = (Port(torch.float32),)
+        self.interp = 8
+        super().__init__(name)
+
+    def apply(self, state, x):
+        shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=x.device)
+        bits = (x[:, None].to(torch.int32) >> shifts[None, :]) & 1
+        return state, (bits.reshape(-1) * 2 - 1).to(torch.float32)
+
+
 class _ClockRecoveryMMBase(Block):
     """Shared machinery for the M&M timing recovery graph blocks.
 
@@ -188,3 +247,36 @@ class ClockRecoveryMMCC(_ClockRecoveryMMBase):
     """digital_clock_recovery_mm_cc as a variable-rate graph block."""
 
     _complex = True
+
+
+class MpskReceiver(Block):
+    """digital_mpsk_receiver_cc (legacy combined carrier+timing receiver):
+    Costas derotation followed by M&M timing, one symbol-rate sample per
+    sps inputs (a fixed-rate approximation of the reference's variable
+    consumption, as in grtpu)."""
+
+    def __init__(self, m: int, sps: float, costas_bw: float = 0.062,
+                 gain_mu: float = 0.175, name=None):
+        self.in_ports = (Port(torch.complex64),)
+        self.out_ports = (Port(torch.complex64),)
+        self.decim = int(round(sps))
+        super().__init__(name)
+        self.m, self.sps = m, sps
+        self.costas_bw = costas_bw
+        self.gain_mu = gain_mu
+        self.gain_omega = 0.25 * gain_mu * gain_mu
+
+    def init_state(self):
+        return (loops.costas_init_state("cpu"),
+                loops.mm_init_state(float(self.sps), 0.5, complex_mode=True,
+                                    device="cpu"))
+
+    def apply(self, state, x):
+        cst, mm = state
+        derot, cst2 = loops.costas_loop(x, cst, self.costas_bw,
+                                        self.m if self.m in (2, 4, 8) else 4)
+        n_out = x.shape[0] // self.decim
+        ys, _, mm2 = loops.clock_recovery_mm_cc(
+            derot, mm, float(self.sps), self.gain_omega, self.gain_mu, 0.005)
+        mm2 = loops.rebase_mm_state(mm2, x.shape[0])
+        return (cst2, mm2), ys[:n_out]

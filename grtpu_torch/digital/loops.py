@@ -8,6 +8,11 @@ blocks call.  Analogs:
     (gr-digital/lib/digital_clock_recovery_mm_cc.cc:116-217): Mueller &
     Müller timing recovery with MMSE fractional interpolation and variable
     consumption.
+  * digital_fll_band_edge_cc (lib/digital_fll_band_edge_cc.cc): frequency-
+    locked loop on the band-edge filters' power difference.
+  * gr_agc2_cc, chunk-batched (the per-sample AGC2 is ``blocks.analog.Agc2``).
+  * digital_constellation_receiver_cb: NCO derotation with a decision-
+    directed phase error.
   * digital_binary_slicer_fb, gr_diff_{encoder,decoder}_bb,
     gr_diff_phasor_cc.
 
@@ -32,6 +37,7 @@ Three M&M forms, as in grtpu:
 
 from __future__ import annotations
 
+import functools
 import math
 from fractions import Fraction
 from typing import NamedTuple, Tuple
@@ -60,24 +66,48 @@ def _bf16(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.bfloat16).to(torch.float32)
 
 
-def _cumsum(x: torch.Tensor) -> torch.Tensor:
+def _cumsum(x: torch.Tensor, op=torch.add, fill: float = 0.0) -> torch.Tensor:
     """float32 inclusive prefix sum along the last axis, summed in XLA's
     order for ``jnp.cumsum`` on a CPU: sequentially within blocks of 16,
     the blocks offset by the same scan of their totals.  (torch.cumsum sums
     in float64 on a CPU.)  The chunked M&M rounds these sums to pick
-    interpolator phases, so the port sums them as grtpu does."""
+    interpolator phases, so the port sums them as grtpu does.  ``op`` /
+    ``fill`` = ``torch.mul`` / 1 give ``jnp.cumprod`` in the same order."""
     n = x.shape[-1]
     if n <= 16:
         cols = [x[..., 0]]
         for j in range(1, n):
-            cols.append(cols[-1] + x[..., j])
+            cols.append(op(cols[-1], x[..., j]))
         return torch.stack(cols, dim=-1)
     m = -(-n // 16)
-    xp = torch.cat([x, x.new_zeros(x.shape[:-1] + (m * 16 - n,))], dim=-1)
-    local = _cumsum(xp.reshape(x.shape[:-1] + (m, 16)))
-    tot = _cumsum(local[..., -1])
-    excl = torch.cat([tot.new_zeros(tot.shape[:-1] + (1,)), tot[..., :-1]], dim=-1)
-    return (local + excl[..., None]).reshape(x.shape[:-1] + (m * 16,))[..., :n]
+    xp = torch.cat([x, x.new_full(x.shape[:-1] + (m * 16 - n,), fill)], dim=-1)
+    local = _cumsum(xp.reshape(x.shape[:-1] + (m, 16)), op, fill)
+    tot = _cumsum(local[..., -1], op, fill)
+    excl = torch.cat([tot.new_full(tot.shape[:-1] + (1,), fill), tot[..., :-1]],
+                     dim=-1)
+    return op(local, excl[..., None]).reshape(x.shape[:-1] + (m * 16,))[..., :n]
+
+
+def _cumprod(x: torch.Tensor) -> torch.Tensor:
+    return _cumsum(x, torch.mul, 1.0)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_const(data: bytes, dtype: str, shape, device: torch.device):
+    arr = np.frombuffer(data, dtype=dtype).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _on(arr: np.ndarray, device) -> torch.Tensor:
+    """A host numpy constant as a tensor on ``device``, copied once."""
+    arr = np.ascontiguousarray(arr)
+    return _host_const(arr.tobytes(), arr.dtype.str, arr.shape,
+                       torch.device(device))
+
+
+def _expj(ph: torch.Tensor) -> torch.Tensor:
+    """exp(-1j * ph) for real ph, as complex64."""
+    return torch.polar(torch.ones_like(ph), -ph)
 
 
 # ------------------------------------------------------------------ costas
@@ -230,6 +260,239 @@ def binary_slicer(x: torch.Tensor) -> torch.Tensor:
     return (x >= 0).to(torch.uint8)
 
 
+# ------------------------------------------------------------- FLL band edge
+def band_edge_taps(samps_per_sym: float, rolloff: float, filter_size: int):
+    """Band-edge filter pair (digital_fll_band_edge_cc::design_filter):
+    derivative-of-RRC band-edge responses centered at +/- (1+rolloff)/2T.
+    Host numpy (a copy of grtpu's), convolution orientation."""
+    M = filter_size
+    power = 0.0
+    bb_taps = []
+    for i in range(M):
+        k = -M / 2 + i
+        t = np.sinc(2 * rolloff * k / samps_per_sym - 0.5) + \
+            np.sinc(2 * rolloff * k / samps_per_sym + 0.5)
+        power += t * t
+        bb_taps.append(t)
+    bb = np.asarray(bb_taps) / np.sqrt(power)
+    n = np.arange(M) - (M - 1.0) / 2.0
+    fc = (1.0 + rolloff) / (2.0 * samps_per_sym)  # cycles/sample
+    upper = bb * np.exp(2j * np.pi * fc * n)
+    lower = bb * np.exp(-2j * np.pi * fc * n)
+    return (upper.astype(np.complex64)[::-1], lower.astype(np.complex64)[::-1])
+
+
+def _power(v: torch.Tensor) -> torch.Tensor:
+    return v.real ** 2 + v.imag ** 2
+
+
+def fll_band_edge(x: torch.Tensor, state, samps_per_sym: float,
+                  rolloff: float, filter_size: int, loop_bw: float,
+                  gains=None):
+    """FLL: rotate by the NCO, filter with the band-edge pair, frequency
+    error = |upper|^2 - |lower|^2 (clipped to [-1, 1]), 2nd-order loop with
+    the frequency clipped to +-2pi/sps on every step.  state = (phase, freq).
+
+    One step per sample (the filters see the *rotated* signal: true
+    feedback).  x carries filter_size-1 history samples.  gains=(alpha,
+    beta) overrides the bandwidth derivation (the 3.5 raw-gain API).
+    Returns (y, (phase, freq))."""
+    alpha, beta = gains if gains is not None else \
+        dsp.control_loop_gains(loop_bw)
+    pair = _on(np.stack(band_edge_taps(samps_per_sym, rolloff, filter_size)),
+               x.device)                              # (2, K): upper, lower
+    K = filter_size
+    n = x.shape[0] - (K - 1)
+    fmax = 2 * np.pi / samps_per_sym
+    karr = torch.arange(K, dtype=torch.float32, device=x.device) - (K - 1)
+    phase, freq = state
+    ys = []
+    for i in range(n):
+        win = x[i:i + K]
+        # rotate the window by the *current* NCO ramp ending at this sample
+        pw = _power((win * _expj(phase + freq * karr) * pair).sum(-1))
+        err = torch.clamp(pw[0] - pw[1], -1.0, 1.0)
+        freq2 = torch.clamp(freq + beta * err, -fmax, fmax)
+        ys.append(win[K - 1] * _expj(phase))
+        phase = dsp.phase_wrap(phase + freq2 + alpha * err)
+        freq = freq2
+    y = torch.stack(ys) if ys else x.new_zeros((0,))
+    return y, (phase, freq)
+
+
+def fll_init_state(device=None):
+    device = resolve(device)
+    return (_f32(0.0, device), _f32(0.0, device))
+
+
+def fll_band_edge_chunked(x: torch.Tensor, state, samps_per_sym: float,
+                          rolloff: float, filter_size: int, loop_bw: float,
+                          gains=None, chunk: int = 64):
+    """Chunk-batched FLL with fll_band_edge's loop semantics.
+
+    The frequency error |BE_up(x_rot)|^2 - |BE_lo(x_rot)|^2 does not depend
+    on the NCO phase, and on the loop frequency only through the slow ramp
+    across the K-tap window.  So per chunk of L samples: freeze the
+    frequency at the carry, modulate the band-edge taps by its ramp and take
+    all L errors with two (L, K) matvecs; close the loop trajectory in
+    cumsum form; derotate the chunk with the batched phase ramp.
+
+    Rails as in grtpu: the frequency is clipped once on the cumulative sum
+    (clip(f0 + beta cumsum err)), not on every step as fll_band_edge clips
+    it, so a loop held at the rail leaves it differently within a chunk.
+
+    x carries filter_size-1 history samples; n = len(x) - (K-1) must be a
+    multiple of ``chunk``.  Returns (y, (phase, freq))."""
+    alpha, beta = gains if gains is not None else \
+        dsp.control_loop_gains(loop_bw)
+    up, lo = band_edge_taps(samps_per_sym, rolloff, filter_size)
+    dev = x.device
+    upj, loj = _on(up, dev), _on(lo, dev)
+    K = filter_size
+    n = x.shape[0] - (K - 1)
+    if n % chunk:
+        raise ValueError(f"n ({n}) must be a multiple of chunk ({chunk})")
+    fmax = float(np.float32(2 * np.pi / samps_per_sym))
+    two_pi = float(np.float32(2 * np.pi))
+    karr = torch.arange(K, dtype=torch.float32, device=dev) - (K - 1)
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    wins = x.unfold(0, K, 1)                            # (n, K) windows
+    phase, freq = state
+    out = []
+    for i0 in range(0, n, chunk):
+        W = wins[i0:i0 + chunk]
+        rot = _expj(freq * karr)
+        # the two matvecs as row sums: a vmapped bank then sums each row as
+        # a single channel does (a batched matmul would sum in its own order)
+        errs = torch.clamp(_power((W * (upj * rot)).sum(-1))
+                           - _power((W * (loj * rot)).sum(-1)), -1.0, 1.0)
+        freq_traj = torch.clamp(freq + beta * _cumsum(errs), -fmax, fmax)
+        dphi = _cumsum(freq_traj + alpha * errs)  # applied AFTER sample t
+        phases = phase + torch.cat([zero, dphi[:-1]])
+        out.append(W[:, K - 1] * _expj(phases))
+        phase = torch.remainder(phase + dphi[-1], two_pi)
+        freq = freq_traj[-1]
+    y = torch.cat(out) if out else x.new_zeros((0,))
+    return y, (phase, freq)
+
+
+# -------------------------------------------------------------------- agc2
+def agc2_chunked(x: torch.Tensor, gain0, attack_rate: float = 1e-1,
+                 decay_rate: float = 1e-2, reference: float = 1.0,
+                 chunk: int = 64):
+    """Chunk-batched AGC2 with grtpu's rule: err = ref - |x g|, rate
+    attack_rate where err < 0 (the output is too loud) else decay_rate,
+    g += rate * err (gr_agc2_cc instead takes the attack rate where
+    |x g| - ref exceeds the gain, and clamps the gain; grtpu does neither).
+
+    The gain recurrence g' = g (1 - r |x|) + r ref is linear once the rate
+    r_t is fixed; per chunk the rate is predicted from the carry gain and
+    the recurrence closes in cumprod / cumsum form, g_t = P_t (g0 + sum B/P),
+    with P floored at 1e-30 as in grtpu: where r |x| > 1 the product turns
+    negative and the closed form leaves the per-sample recurrence (a fault
+    of the reference, reproduced; see ROADMAP.md §3).  n must be a multiple
+    of ``chunk``.  Returns (y, gain')."""
+    n = x.shape[-1]
+    if n % chunk:
+        raise ValueError(f"n ({n}) must be a multiple of chunk ({chunk})")
+    att, dec, ref = (float(np.float32(attack_rate)),
+                     float(np.float32(decay_rate)), float(np.float32(reference)))
+    a = x.abs()
+    g0 = (gain0.to(torch.float32) if isinstance(gain0, torch.Tensor)
+          else _f32(gain0, x.device))
+    out = []
+    for i0 in range(0, n, chunk):
+        seg_a, seg_x = a[i0:i0 + chunk], x[i0:i0 + chunk]
+        r = torch.where(ref - g0 * seg_a < 0, att, dec)
+        A = 1.0 - r * seg_a                   # g_{t+1} = A_t g_t + B_t
+        P = _cumprod(A)
+        S = _cumsum((r * ref) / torch.clamp(P, min=1e-30))
+        g_after = P * (g0 + S)
+        # y_t uses the gain BEFORE its own update
+        out.append(seg_x * torch.cat([g0.reshape(1), g_after[:-1]]))
+        g0 = g_after[-1]
+    y = torch.cat(out) if out else x
+    return y.to(x.dtype), g0
+
+
+# ------------------------------------------------- constellation receiver
+def _nearest(y: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest point (first on ties, as jnp.argmin)."""
+    return torch.argmin(torch.abs(y[..., None] - pts) ** 2, dim=-1)
+
+
+def _point(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pts[idx] for a 0-d index tensor, without reading it on the host
+    (indexing with a 0-d tensor would, which a CUDA graph cannot hold)."""
+    return torch.index_select(pts, 0, idx.reshape(1))[0]
+
+
+def _dd_error(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    e = y * torch.conj(ref)
+    return torch.atan2(e.imag, e.real)
+
+
+def constellation_receiver(x: torch.Tensor, state, constellation,
+                           loop_bw: float):
+    """digital_constellation_receiver_cb: NCO derotation with a decision-
+    directed phase error from the constellation, one step per symbol.
+    Returns (symbols int32, y, state)."""
+    alpha, beta = dsp.control_loop_gains(loop_bw)
+    pts = _on(constellation.points, x.device)
+    phase, freq = state
+    syms, ys = [], []
+    for i in range(x.shape[0]):
+        y = x[i] * _expj(phase)
+        sym = _nearest(y, pts)
+        err = _dd_error(y, _point(pts, sym))
+        freq = freq + beta * err
+        phase = dsp.phase_wrap(phase + freq + alpha * err)
+        syms.append(sym)
+        ys.append(y)
+    if not ys:
+        return (torch.zeros(0, dtype=torch.int32, device=x.device), x,
+                (phase, freq))
+    return (torch.stack(syms).to(torch.int32), torch.stack(ys),
+            (phase, freq))
+
+
+def constellation_receiver_chunked(x: torch.Tensor, state, constellation,
+                                   loop_bw: float, chunk: int = 32,
+                                   refine: int = 2):
+    """Chunk-batched constellation receiver with constellation_receiver's
+    loop semantics.  Per chunk: predict the phase ramp from the carried
+    (phase, freq), derotate and decide all symbols at once, then re-solve
+    the loop trajectory from the batch of phase errors in closed form
+    (``refine`` sweeps, the errors re-derived from the corrected ramp each
+    sweep).  len(x) must be a multiple of ``chunk``.
+    Returns (symbols int32, y, state)."""
+    alpha, beta = dsp.control_loop_gains(loop_bw)
+    dev = x.device
+    pts = _on(constellation.points, dev)
+    t0 = torch.arange(chunk, dtype=torch.float32, device=dev)
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    phase, freq = state
+    syms, ys = [], []
+    for i0 in range(0, x.shape[-1], chunk):
+        seg = x[i0:i0 + chunk]
+        ph = phase + freq * t0                    # freq-only prediction
+        for _ in range(refine):
+            y = seg * _expj(ph)
+            errs = _dd_error(y, pts[_nearest(y, pts)])
+            freq_traj = freq + beta * _cumsum(errs)
+            dphi = _cumsum(freq_traj + alpha * errs)
+            ph = phase + torch.cat([zero, dphi[:-1]])
+        y = seg * _expj(ph)
+        syms.append(_nearest(y, pts).to(torch.int32))
+        ys.append(y)
+        phase = dsp.phase_wrap(phase + dphi[-1])
+        freq = freq_traj[-1]
+    if not ys:
+        return (torch.zeros(0, dtype=torch.int32, device=dev), x,
+                (phase, freq))
+    return torch.cat(syms), torch.cat(ys), (phase, freq)
+
+
 # ------------------------------------------------------------- differential
 def diff_encode(x: torch.Tensor, state, modulus: int):
     """gr_diff_encoder_bb: y[i] = (x[i] + y[i-1]) % M, as a prefix sum."""
@@ -303,6 +566,13 @@ def _window_rows(x: torch.Tensor, sps: float, W: int, width: int):
            + torch.arange(L, device=x.device)[None, :])
     d = torch.from_numpy((grid[1:] - grid[:-1]).astype(np.float32)).to(x.device)
     return xp[idx], d, T, L
+
+
+def _mm_window_rows(x: torch.Tensor, sps: int, W: int):
+    """(T, L) rows with rows[t, k] = x[t*sps + k] (integer-sps legacy
+    surface; the general form is :func:`_window_rows`)."""
+    rows, _, T, L = _window_rows(x, int(sps), W, NTAPS)
+    return rows, T, L
 
 
 def _mm_windowed(x, state, sps, gain_omega, gain_mu, omega_relative_limit,

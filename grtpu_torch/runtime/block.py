@@ -149,13 +149,6 @@ class Block:
         self._version += 1
         Block._global_version[0] += 1
 
-    def generators(self, device) -> Tuple[torch.Generator, ...]:
-        """The ``torch.Generator`` s this block draws from on ``device``
-        (none by default).  ``run(device_loop=True)`` registers them with
-        the CUDA graph it captures, so a replay draws what the eager step
-        would."""
-        return ()
-
     # -- contract -----------------------------------------------------------
     def init_state(self) -> Any:
         """Initial carried state: a tensor, a (Named)tuple of tensors, or

@@ -292,25 +292,15 @@ class DeviceLoop:
             p.calls += 1
             return
         if p.graph is None:
-            p.graph, p.launches = self._capture(p, key)
+            p.graph, p.launches = self._capture(p)
         p.graph.replay()
         self._add_launches(p.launches)
 
-    def _capture(self, p, key):
+    def _capture(self, p):
         from grtpu_torch.ops.cuda_fir import add_launches, recording_launches
 
         self._add_launches = add_launches
-        okey, ri = key
-        lo, hi, _ = self.ranges[okey][ri]
         graph = torch.cuda.CUDAGraph()
-        for b in self.ex._segment.get(okey, [])[lo:hi]:
-            for g in b.generators(self.device):
-                if not hasattr(graph, "register_generator_state"):
-                    raise RuntimeError(
-                        f"device_loop: {b.name} draws from a torch.Generator, "
-                        f"and this torch ({torch.__version__}) cannot "
-                        f"register one with a CUDA graph")
-                graph.register_generator_state(g)
         self.current = self.failure = None
         t0 = time.perf_counter()
         # A CUDA graph that the garbage collector frees during the capture

@@ -5,7 +5,7 @@ Each executor path that ``chip_smoke.py`` drives runs eagerly and under
 ``device_loop`` on the same input, in executors of their own: the WBFM chain
 with its audio FIR on the hand kernel, the tuner -> WBFM chain, the
 64-channel ``PfbChannelizer`` graph, the DMR variable-rate stream, a
-``NoiseSource`` graph (its generator registered with the graph), the
+``NoiseSource`` graph (its counter-based stream replayed), the
 ``PfbClockSync`` and ``Agc`` loops, and a checkpoint taken between two
 captured runs.  The hand kernel's launch count under replay is one a chunk,
 and a block that reads the card from the host inside ``apply`` makes the
