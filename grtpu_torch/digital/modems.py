@@ -30,7 +30,7 @@ from grtpu_torch.digital.constellation import fsk4_symbols, psk_constellation
 from grtpu_torch.ops import dsp
 from grtpu_torch.ops.fir import batch_fir_filter, fir_filter, interp_fir_filter
 from grtpu_torch.utils import firdes
-from grtpu_torch.utils.device import resolve
+from grtpu_torch.utils.device import constant, resolve
 
 
 def _bits_msb(data: np.ndarray, k: int = 1) -> np.ndarray:
@@ -73,11 +73,7 @@ class _Modem:
         copied once per device: a call moves no constants to the card (a
         pageable host-to-device copy stalls the host until the card has
         drained its queue)."""
-        cache = self.__dict__.setdefault("_dev", {})
-        key = (name, torch.device(device))
-        if key not in cache:
-            cache[key] = torch.from_numpy(getattr(self, name)).to(device)
-        return cache[key]
+        return constant(self, name, device)
 
     def _mm(self, x, mm_state, omega_relative_limit, chunk=64):
         """Windowed (or chunked) M&M over a burst with W=32 zero history

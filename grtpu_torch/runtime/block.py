@@ -118,9 +118,27 @@ class Block:
     decim: int = 1
     interp: int = 1
     variable_rate: bool = False
-    # True for blocks that emit stream tags during work; the port's
-    # executor does not run such blocks yet (it raises).
+    # Tag propagation policy, analog of gr_block.h:68-72 TPP_*.
+    tag_propagation: str = "all_to_all"  # "dont" | "all_to_all" | "one_to_one"
+    # True for blocks that *emit* tags during work (correlate_access_code_tag,
+    # gr_burst_tagger).  Two mechanisms, in preference order:
+    #   1. device_tags = True: the block implements apply_tagged(); the
+    #      detection runs on the device and only a small fixed-size record
+    #      (chunk-relative offsets + aux values) crosses to the host, where
+    #      tags_from_device() turns it into Tag objects.  Under
+    #      run(device_loop=True) the record is written into a static buffer
+    #      of the captured step and read after the run.
+    #   2. make_tags(): the executor captures the block's full in/out
+    #      chunks each step and synthesizes tags on the host.
+    # Propagation is host-plane either way (grtpu_torch.runtime.tags);
+    # offsets stay exact because chunk sizes are static.  Emission is taken
+    # from top-level blocks only (not behind a variable-rate block), as in
+    # grtpu.
     emits_tags: bool = False
+    device_tags: bool = False
+    # Fixed per-chunk tag-record capacity for device_tags blocks (tags
+    # beyond this in ONE chunk are dropped: the record's shape is static).
+    max_tags_per_chunk: int = 128
     # True for a source block without carried state: the executor then
     # calls ``apply(state, n, device=...)``, since no state tensor tells the
     # block where to produce.
@@ -192,6 +210,44 @@ class Block:
         their ``apply`` returns; production beyond it is deferred to the
         next chunk via the carried state."""
         return (n_delivered - (self.history - 1)) // self.decim * self.interp
+
+    def make_tags(self, ins, outs, start_in: int, start_out: int):
+        """Host-side tag synthesis for ``emits_tags`` blocks: called once
+        per time-block with this block's input chunks (including the
+        history halo) and output chunks as numpy arrays, plus the absolute
+        stream offsets of the first fresh input/output item.  Returns a
+        list of :class:`grtpu_torch.runtime.tags.Tag` with *output-stream*
+        absolute offsets; the executor injects them onto the downstream
+        edges (the analog of add_item_tag inside general_work)."""
+        return []
+
+    def apply_tagged(self, state, *inputs):
+        """Work + tag detection on the device for ``device_tags`` blocks.
+
+        Returns ``(new_state, outputs, tagrec)`` where ``tagrec`` is a dict
+        of statically shaped tensors — by convention ``{"offset": int32
+        (max_tags_per_chunk,), chunk-relative OUTPUT-stream offsets with -1
+        marking unused rows, ...aux value tensors aligned with offset...}``.
+        The executor reads the record on the host and calls
+        :meth:`tags_from_device` to make the Tag objects."""
+        raise NotImplementedError
+
+    def tags_from_device(self, rec, start_in: int, start_out: int):
+        """Turn one chunk's tag record (numpy arrays, as returned by
+        apply_tagged) into a list of Tags with absolute offsets."""
+        raise NotImplementedError
+
+    def _tag_topk(self, hits: torch.Tensor, n: int):
+        """Chunk-relative indices of up to ``max_tags_per_chunk`` True
+        values of ``hits`` (length-n bool), ascending, padded with -1; and
+        the matching gather indices (0 where unused).  ``torch.topk`` on a
+        recency score ``n - i`` (unique for hits, 0 elsewhere): no
+        data-dependent shape, so the step stays capturable."""
+        k = min(self.max_tags_per_chunk, n)
+        score = torch.where(hits, n - torch.arange(n, device=hits.device), 0)
+        vals, idx = torch.topk(score, k)
+        offs = torch.where(vals > 0, n - vals, -1).to(torch.int32)
+        return offs, torch.where(vals > 0, idx, 0)
 
     def noutput_for(self, n_in: int) -> int:
         if n_in % self.decim:

@@ -28,6 +28,12 @@ then replayed.  On a CPU device no graph exists: each call runs the piece,
 which exercises the same buffers.  On a CUDA device a capture that fails
 raises; nothing falls back to the eager step.
 
+Stream tags.  A top-level tag emitter's record (``apply_tagged``'s
+statically shaped dict, or, for a ``make_tags`` block, its input and output
+chunks) is one more static buffer that the captured piece writes; ``step``
+returns a fresh copy of it among the captures, and the executor reads the
+records of all chunks once the run has ended.
+
 Launches of the hand kernels (``grtpu_torch.ops.cuda_fir.launches``) made
 inside a capture are recorded with the graph and counted at every replay.
 """
@@ -156,6 +162,7 @@ class DeviceLoop:
         self.inputs: Optional[tuple] = None
         self.edges: Dict[str, torch.Tensor] = {}
         self.caps: Dict[str, tuple] = {}
+        self.tagcaps: Dict[str, object] = {}     # tag records, by caps key
         self.pieces: Dict[tuple, _Piece] = {}
         self.current = None          # the block a piece is applying
         self.failure = None          # the first error raised inside a piece
@@ -276,6 +283,7 @@ class DeviceLoop:
                 pads.append(self.edges[_edge_key(e)].clone())
         caps = {name: tuple(v.clone() for v in vals)
                 for name, vals in self.caps.items()}
+        caps.update((k, _clone_tree(v)) for k, v in self.tagcaps.items())
         if ex.vr_blocks:
             for name, keys in ex._vr_sink_keys.items():
                 caps[name] = tuple(self.emit[k].clone() for k in keys)
@@ -375,7 +383,8 @@ class DeviceLoop:
             try:
                 for b in blocks:
                     self.current = b
-                    ins, outs = ex._apply_block(b, ctx, edge_vals, self.inputs)
+                    ins, outs, rec = ex._apply_block(b, ctx, edge_vals,
+                                                     self.inputs)
                     if capturing and _capture_invalidated():
                         raise RuntimeError(
                             "an operation the capture cannot hold ran here "
@@ -384,6 +393,13 @@ class DeviceLoop:
                         pairs += self._push(b, outs)
                         continue
                     outs = ex._fixed_outputs(b, outs)
+                    if rec is not None:
+                        pairs += self._settle(self.tagcaps, "__tagdev__" + b.name,
+                                              rec, settle, b.name)
+                    elif b.emits_tags and owner is None:
+                        pairs += self._settle(self.tagcaps, "__tagsrc__" + b.name,
+                                              (tuple(ins), tuple(outs)),
+                                              settle, b.name)
                     if not b.out_ports and ins:
                         if owner is None:
                             pairs += self._settle(self.caps, b.name,

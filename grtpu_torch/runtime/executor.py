@@ -33,8 +33,15 @@ device_loop`); ``fuse_firs`` composes adjacent FIR filters before the
 topology is computed (:mod:`grtpu_torch.runtime.optimize`); ``debug_taps``
 keeps every top-level edge's stream in :attr:`StreamExecutor.edge_data`.
 
-Not ported yet (raises ``NotImplementedError`` naming its item in
-ROADMAP.md's list "Executor features still to port"): stream tags in flight.
+Stream tags ride on the host, as in grtpu: ``add_tags`` puts tags on an
+input pad's stream, tag-emitting blocks (``make_tags`` / ``device_tags``)
+add theirs each time-block, and a precomputed tag plan moves them block by
+block once a chunk, scaling offsets by each block's rate and keeping what
+reaches a sink (:attr:`StreamExecutor.sink_tags`) or an output pad
+(:attr:`StreamExecutor.pad_tags`).  ``step`` advances the plan after its
+chunk; ``run(device_loop=True)`` keeps each chunk's tag records on the
+device and replays the plan chunk by chunk once the run has ended, so that
+tags add no host read inside the run.
 """
 
 from __future__ import annotations
@@ -48,18 +55,8 @@ import torch
 
 from grtpu_torch.runtime.block import Block
 from grtpu_torch.runtime.graph import Edge, FlatGraph, Graph, Pad
-from grtpu_torch.runtime.tags import Tag
+from grtpu_torch.runtime.tags import Tag, propagate_tags
 from grtpu_torch.utils.device import resolve
-
-_PORT_ITEMS = {
-    "stream tags": 2,
-}
-
-
-def _not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} are not ported to grtpu_torch yet: see ROADMAP.md, "
-        f"'Executor features still to port', item {_PORT_ITEMS[feature]}")
 
 
 def _edge_key(e: Edge) -> str:
@@ -127,6 +124,24 @@ def _replace_leaves(tree, new, path=()):
     return tree
 
 
+class _TagPlane:
+    """Host-side tag state for one stream: per-edge tag queues, the set of
+    edges with tags in flight, and the terminal stores (sink and pad
+    tags)."""
+
+    __slots__ = ("tags", "tagged", "sink_tags", "pad_tags")
+
+    def __init__(self, edge_keys):
+        self.tags: Dict[str, List[Tag]] = {k: [] for k in edge_keys}
+        self.tagged: set = set()
+        self.sink_tags: Dict[str, List[Tag]] = {}
+        self.pad_tags: Dict[int, List[Tag]] = {}
+
+
+def _to_numpy(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
 class _RateMismatch(ValueError):
     """A join's inputs disagree; carries (source_root, have, need)
     rescale candidates for the demand-balancing retry loop."""
@@ -176,9 +191,6 @@ class StreamExecutor:
         self.order = self.flat.topological_order()
         self.debug_taps = debug_taps
         self.edge_data: Dict[str, List[torch.Tensor]] = {}
-        for b in self.order:
-            if b.emits_tags:
-                raise _not_ported("stream tags")
         self.device = resolve(device)
         self._ups = {b.uid: self.flat.upstream_of(b) for b in self.order}
         self._downs = {b.uid: self.flat.downstream_of(b) for b in self.order}
@@ -211,6 +223,14 @@ class StreamExecutor:
         self.state = self._make_state()
         self.sink_data: Dict[str, tuple] = {}
         self._device_loop = None  # run(device_loop=True)'s static buffers
+        # host-side stream tags: one plane, absolute item counters a block
+        self._plane = _TagPlane(self._edge_keys)
+        self._tags: Dict[str, List[Tag]] = self._plane.tags
+        self.sink_tags: Dict[str, List[Tag]] = self._plane.sink_tags
+        self.pad_tags: Dict[int, List[Tag]] = self._plane.pad_tags
+        self.nitems = {b.name: 0 for b in self.order}      # items consumed
+        self.nitems_out = {b.name: 0 for b in self.order}  # items produced
+        self._build_tag_plan()
         # Stale-parameter guard: snapshot block versions; step() raises if
         # a setter touched a block after this executor was built.
         self._global_version_snap = Block._global_version[0]
@@ -358,6 +378,8 @@ class StreamExecutor:
             if len(feed) != 1:
                 raise ValueError(f"output pad {pad.name} must have exactly one driver")
             self.out_pad_edges.append(feed[0])
+        self._edge_keys = [_edge_key(e) for e in self.flat.edges
+                           if isinstance(e.dst.block, Block)]
 
     def _source_root_of(self, e: Edge) -> Optional[Block]:
         """The unique SOURCE block feeding this edge's path, if any — the
@@ -467,10 +489,16 @@ class StreamExecutor:
         return x.to(device=self.device, dtype=pad.port.dtype)
 
     # ------------------------------------------------------------------ step
+    def _tags_on_device(self, b: Block) -> bool:
+        """b detects its tags on the device (``apply_tagged``): a top-level
+        ``device_tags`` emitter."""
+        return (b.emits_tags and b.device_tags
+                and self.block_owner[b.uid] is None)
+
     def _apply_block(self, b: Block, ctx, edge_vals, ext_inputs):
         """Gather b's inputs (each with its halo tail prepended, the tail
         advanced in ``ctx``), apply b and keep its new state in ``ctx``.
-        Returns (inputs, raw apply outputs)."""
+        Returns (inputs, raw apply outputs, tag record or None)."""
         ups = self._ups[b.uid]
         ins = []
         for i in range(len(b.in_ports)):
@@ -492,10 +520,14 @@ class StreamExecutor:
                                       device=self.device)
             else:
                 new_s, outs = b.apply(ctx["blocks"][uid], n_out)
+        elif self._tags_on_device(b):
+            new_s, outs, rec = b.apply_tagged(ctx["blocks"][uid], *ins)
+            ctx["blocks"][uid] = new_s
+            return ins, outs, dict(rec)
         else:
             new_s, outs = b.apply(ctx["blocks"][uid], *ins)
         ctx["blocks"][uid] = new_s
-        return ins, outs
+        return ins, outs, None
 
     @staticmethod
     def _fixed_outputs(b: Block, outs) -> tuple:
@@ -531,12 +563,18 @@ class StreamExecutor:
         states, tails, FIFOs, emission buffers and counts) in place.
         ``edge_vals`` holds this segment's edge values."""
         for b in self._segment.get(None if owner is None else owner.uid, ()):
-            ins, outs = self._apply_block(b, ctx, edge_vals, ext_inputs)
+            ins, outs, rec = self._apply_block(b, ctx, edge_vals, ext_inputs)
             if b.variable_rate:
                 self._push_and_drain(b, ctx, self._vr_outputs(b, outs),
                                      ext_inputs, caps)
                 continue
             outs = self._fixed_outputs(b, outs)
+            if rec is not None:
+                caps["__tagdev__" + b.name] = rec
+            elif b.emits_tags and owner is None:
+                # host-side tag synthesis (make_tags): this block's full
+                # in/out chunks
+                caps["__tagsrc__" + b.name] = (tuple(ins), tuple(outs))
             if not b.out_ports and ins:
                 if owner is None:
                     caps[b.name] = tuple(ins)
@@ -647,6 +685,7 @@ class StreamExecutor:
                     f"input pad {pad.index}: expected {self.chunk_size} "
                     f"items, got {x.shape[0]}")
         self.state, (pads, caps) = self._step(self.state, ext_inputs)
+        self._advance_tags(self._emitted_from_caps(*self._pop_tag_caps(caps)))
         return pads, caps
 
     # ------------------------------------------------------------------ run
@@ -669,7 +708,9 @@ class StreamExecutor:
         with one host read per push of a variable-rate block.  A capture
         that fails raises, naming the block whose ``apply`` broke it where
         that can be found; a run that raises leaves the state as it was at
-        entry.  It cannot carry ``debug_taps``."""
+        entry.  It cannot carry ``debug_taps``.  Each chunk's tag records
+        stay on the device until the run has ended; the tag plan is then
+        replayed chunk by chunk, as ``step`` would have advanced it."""
         n_pads = len(self.flat.in_pads)
         if len(ext_inputs) != n_pads:
             raise ValueError(f"graph has {n_pads} input pads, got {len(ext_inputs)}")
@@ -704,10 +745,15 @@ class StreamExecutor:
                       for x in xs]
             chunks = (tuple(x[c * cs:(c + 1) * cs] for x in xs)
                       for c in range(nchunks))
+        tag_caps = []
         for chunk in chunks:
-            self._collect(*step(*chunk), outs_accum, sink_accum, counts_accum)
+            pads, caps = step(*chunk)
+            if device_loop:
+                tag_caps.append(self._pop_tag_caps(caps))
+            self._collect(pads, caps, outs_accum, sink_accum, counts_accum)
         if device_loop:
             self.state = self._device_loop.unload()
+            self._replay_tags(tag_caps)
         return self._finalize(outs_accum, sink_accum, n, counts_accum)
 
     def stream(self, chunk_iter):
@@ -799,9 +845,166 @@ class StreamExecutor:
         return rate[src.uid]
 
     # ------------------------------------------------------------------ tags
+    def _build_tag_plan(self):
+        """Precompute the per-block tag-propagation topology once, so that
+        the per-step host pass does no graph traversal and, through the
+        tagged-edge set, no work at all for blocks with no tags in flight
+        on their inputs (the incremental analog of the reference's
+        per-iteration tag pass, gr_block_executor.cc:91-156)."""
+        self._tagged_edges: set = self._plane.tagged
+        self._count_inc: List[tuple] = []
+        self._tag_plan: List[tuple] = []
+        for b in self.order:
+            n_in = self.block_nin[b.uid]
+            n_out = (n_in // b.decim * b.interp if not b.variable_rate
+                     else int(n_in * b.nominal_rate))
+            self._count_inc.append((b.name, n_in, n_out))
+            in_list = [(i, _edge_key(e))
+                       for i, e in sorted(self._ups[b.uid].items())]
+            down_list = [(e.src.port, _edge_key(e),
+                          e.dst.block.index if isinstance(e.dst.block, Pad)
+                          else None) for e in self._downs[b.uid]]
+            self._tag_plan.append((b, in_list, down_list, n_in))
+
+    def _bump_counters(self, steps: int = 1):
+        for name, n_in, n_out in self._count_inc:
+            self.nitems[name] += n_in * steps
+            self.nitems_out[name] += n_out * steps
+
     def add_tags(self, pad_index: int, tags: Sequence[Tag]):
-        """Attach stream tags to an input pad's stream (not ported yet)."""
-        raise _not_ported("stream tags")
+        """Attach stream tags to an input pad's stream (absolute offsets)."""
+        for e in self.flat.edges:
+            if isinstance(e.src.block, Pad) and e.src.block.index == pad_index:
+                k = _edge_key(e)
+                self._tags[k].extend(tags)
+                self._tagged_edges.add(k)
+
+    @staticmethod
+    def _pop_tag_caps(caps):
+        """Split the emitting blocks' records out of a caps dict: returns
+        ({name: (ins, outs)}, {name: tagrec}) for the make_tags captures and
+        the device_tags records."""
+        tagsrc = {k[len("__tagsrc__"):]: caps.pop(k)
+                  for k in list(caps) if k.startswith("__tagsrc__")}
+        tagdev = {k[len("__tagdev__"):]: caps.pop(k)
+                  for k in list(caps) if k.startswith("__tagdev__")}
+        return tagsrc, tagdev
+
+    def _emitted_from_caps(self, tagsrc, tagdev):
+        """One chunk's emitted Tags from the two kinds of capture (tensors
+        or numpy arrays)."""
+        if not tagsrc and not tagdev:
+            return None
+        byname = {b.name: b for b in self.order}
+        emitted: Dict[str, List[Tag]] = {}
+        for name, (ins, outs) in tagsrc.items():
+            emitted[name] = byname[name].make_tags(
+                tuple(_to_numpy(a) for a in ins),
+                tuple(_to_numpy(a) for a in outs),
+                self.nitems[name], self.nitems_out[name])
+        for name, rec in tagdev.items():
+            emitted[name] = byname[name].tags_from_device(
+                {k: _to_numpy(v) for k, v in rec.items()},
+                self.nitems[name], self.nitems_out[name])
+        return emitted
+
+    def _replay_tags(self, tag_caps):
+        """The tag plan over a device_loop run's chunks, in order.  Each
+        record is stacked over the chunks and read in one transfer, then
+        taken apart chunk by chunk."""
+        if not any(src or dev for src, dev in tag_caps):
+            for _ in tag_caps:
+                self._advance_tags(None)
+            return
+
+        def stacked(parts):
+            return torch.stack(parts).cpu().numpy()
+
+        src0, dev0 = tag_caps[0]
+        src_h = {name: tuple(tuple(stacked([c[0][name][side][j]
+                                            for c in tag_caps])
+                                   for j in range(len(src0[name][side])))
+                             for side in (0, 1))
+                 for name in src0}
+        dev_h = {name: {k: stacked([c[1][name][k] for c in tag_caps])
+                        for k in dev0[name]} for name in dev0}
+        for c in range(len(tag_caps)):
+            self._advance_tags(self._emitted_from_caps(
+                {name: tuple(tuple(a[c] for a in side) for side in sides)
+                 for name, sides in src_h.items()},
+                {name: {k: v[c] for k, v in rec.items()}
+                 for name, rec in dev_h.items()}))
+
+    def _advance_tags(self, emitted: Optional[Dict[str, List[Tag]]] = None):
+        """Host-side per-chunk tag propagation (gr_block_executor.cc:91-156).
+
+        TPP_DONT consumes input tags without forwarding; TPP_ALL_TO_ALL
+        scales every input tag by relative_rate onto every output edge;
+        TPP_ONE_TO_ONE maps input port i's tags to output port i's edges
+        only.  ``emitted`` maps emitting-block names to this chunk's new
+        Tags, injected onto their output edges (the add_item_tag analog).
+        Across a variable-rate boundary, offsets scale by the block's
+        *nominal* rate, the approximation the reference makes when a block
+        updates tags with set_relative_rate but consumes variably."""
+        if emitted or self._tagged_edges:
+            self._advance_plane(self._plane, emitted)
+        self._bump_counters()
+
+    def _advance_plane(self, plane: _TagPlane,
+                       emitted: Optional[Dict[str, List[Tag]]]):
+        """One plane's tag pass for the current chunk (the counters are
+        bumped by the caller)."""
+        tagged = plane.tagged
+        if emitted:
+            byname = {b.name: b for b in self.order}
+            for name, new in emitted.items():
+                if not new:
+                    continue
+                for e in self._downs[byname[name].uid]:
+                    k = _edge_key(e)
+                    if k in plane.tags:
+                        plane.tags[k].extend(new)
+                        tagged.add(k)
+                    elif isinstance(e.dst.block, Pad):
+                        plane.pad_tags.setdefault(
+                            e.dst.block.index, []).extend(new)
+
+        for b, in_list, down_list, n_in in self._tag_plan:
+            hit = [ik for ik in in_list if ik[1] in tagged]
+            if not hit:
+                continue
+            limit = self.nitems[b.name] + n_in
+            in_by_port: Dict[int, List[Tag]] = {}
+            for i, k in hit:
+                lst = plane.tags[k]
+                take = [t for t in lst if t.offset < limit]
+                if take:
+                    keep = [t for t in lst if t.offset >= limit]
+                    plane.tags[k] = keep
+                    if not keep:
+                        tagged.discard(k)
+                    in_by_port[i] = take
+            if not in_by_port:
+                continue
+            all_in = [t for ts in in_by_port.values() for t in ts]
+            if not b.out_ports:
+                # terminal blocks keep their received tags for the host
+                # (the analog of reading gr_buffer tags at a sink)
+                plane.sink_tags.setdefault(b.name, []).extend(all_in)
+                continue
+            if b.tag_propagation == "dont":
+                continue  # consumed, not forwarded (TPP_DONT)
+            for src_port, k, dst_pad in down_list:
+                src_tags = (in_by_port.get(src_port, [])
+                            if b.tag_propagation == "one_to_one" else all_in)
+                if not src_tags:
+                    continue
+                out_tags = propagate_tags(src_tags, b.relative_rate)
+                if dst_pad is not None:
+                    plane.pad_tags.setdefault(dst_pad, []).extend(out_tags)
+                elif k in plane.tags:
+                    plane.tags[k].extend(out_tags)
+                    tagged.add(k)
 
     def dump_debug_taps(self, directory: str) -> Dict[str, str]:
         """Write every edge's captured stream to ``<dir>/<edge>.dat`` (raw

@@ -349,3 +349,43 @@ def test_models_package_exports():
         assert hasattr(tb, name)
     with pytest.raises(ValueError):
         tfm.NbfmRx(16e3, 50e3)
+
+
+def test_tuner_snr_is_the_chains_own_on_chip_smokes_capture():
+    """chip_smoke's phase 6a reads 39.32 dB of audio SNR on the tuner path
+    against 57.58 on the main path.  On a shortened capture of the same
+    recipe (chip_smoke.wideband_capture, 2^18 samples) grtpu and the port
+    give the same audio (1e-5) and so the same SNR: the figure is the
+    chain's, not a fault of the port.  It is the reference's sampling that
+    sets it: after the tuner's decimation by 8 the discriminator measures
+    the phase step over 8 capture samples, centred 3.5 samples before the
+    capture grid the reference is taken on; against the message as the
+    discriminator measures it (chip_smoke.discriminator_message) both
+    packages read the main path's ~57.6 dB."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    x, msg = cs.wideband_capture(n=1 << 18)
+    audio = {k: run_chain(k, tuner_wfm, x, 65536) for k in ("j", "t")}
+    assert rel(audio["t"], audio["j"]) < 1e-5
+
+    taps = firdes.low_pass(1.0, FS, 100e3, 50e3)
+    first = -((len(taps) - 1) // 2) % 64
+
+    def snr(y, m):
+        ref = run_chain("t", lambda fm, filt: [fm.FmDeemph(QUAD / 8, 75e-6)],
+                        m[first::64], 8192, in_c=False)
+        r, e = cs.align(ref[512:-512], y[512:-512])
+        return cs.snr_db(r.astype(np.float64), e.astype(np.float64))
+
+    on_grid = {k: snr(y, msg) for k, y in audio.items()}
+    measured = {k: snr(y, cs.discriminator_message(msg))
+                for k, y in audio.items()}
+    assert abs(on_grid["t"] - on_grid["j"]) < 0.01
+    assert abs(measured["t"] - measured["j"]) < 0.01
+    assert 38.8 < on_grid["t"] < 39.8
+    assert measured["t"] > 55.0

@@ -267,15 +267,32 @@ class TestGuards:
         assert y[-1].item() == 8.0
 
     def test_only_stream_tags_raise(self):
-        """Of grtpu's executor features only stream tags are still to port
-        (ROADMAP.md, item 2); device_loop, fuse_firs and debug_taps run."""
+        """Every executor feature of grtpu is ported: device_loop, fuse_firs
+        and debug_taps run, and add_tags (the last to come) carries tags
+        through a decimating chain to the output pad as grtpu does."""
         ex = fir_chain("torch", [(1, np.ones(3, np.float32))], 8,
                        debug_taps=True, fuse_firs=True)
         ex.run(np.zeros(8))
         fir_chain("torch", [(1, np.ones(3, np.float32))], 8).run(
             np.zeros(8), device_loop=True)
-        with pytest.raises(NotImplementedError, match="item 2"):
-            ex.add_tags(0, [])
+        from grtpu.runtime.tags import Tag as JTag
+        from grtpu_torch.runtime.tags import Tag as TTag
+
+        specs = [(2, np.ones(3, np.float32)), (2, np.ones(5, np.float32))]
+        got = {}
+        for kind, Tag in (("torch", TTag), ("jax", JTag)):
+            for mode in ((False, True) if kind == "torch" else (False,)):
+                ex = fir_chain(kind, specs, 16)
+                ex.add_tags(0, [Tag(3, "a", 1), Tag(21, "b", "x")])
+                x = PKGS[kind][4](np.zeros(48, np.float32))
+                if mode:
+                    ex.run(x, device_loop=True)
+                else:
+                    ex.run(x)
+                got[kind, mode] = sorted((t.offset, t.key, t.value)
+                                         for t in ex.pad_tags[0])
+        assert got["torch", False] == got["torch", True] == got["jax", False]
+        assert got["jax", False] == [(0, "a", 1), (5, "b", "x")]
 
     def test_variable_rate_block_raises(self):
         """Variable-rate blocks run now; one that breaks the

@@ -182,7 +182,12 @@ def test_import_pulls_in_no_jax():
             "grtpu_torch.ops.cuda_fir, grtpu_torch.ops.fft_filter, "
             "grtpu_torch.ops.mmse_interp, grtpu_torch.digital.blocks, "
             "grtpu_torch.digital.constellation, grtpu_torch.digital.loops, "
-            "grtpu_torch.digital.modems; "
+            "grtpu_torch.digital.modems, grtpu_torch.runtime.pmt, "
+            "grtpu_torch.runtime.msg, grtpu_torch.runtime.top_block, "
+            "grtpu_torch.runtime.device_loop, grtpu_torch.utils.testing, "
+            "grtpu_torch.digital.packet, grtpu_torch.digital.correlate, "
+            "grtpu_torch.digital.packet_blocks, grtpu_torch.digital.pkt, "
+            "grtpu_torch.digital.tunnel, grtpu_torch.digital.ofdm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'grtpu' "
             "or m.startswith('grtpu.')); print(bad); "
@@ -209,7 +214,10 @@ def test_default_device_is_the_card():
     assert device.resolve("cpu") == torch.device("cpu")
     assert device.resolve(torch.device("cuda", 1)) == torch.device("cuda:1")
     from grtpu_torch.blocks import pfb as pfb_blocks
+    from grtpu_torch.digital import ofdm
     from grtpu_torch.ops import dsp
+    from grtpu_torch.runtime import top_block
+    from grtpu_torch.utils import testing
 
     for fn in (pfb_blocks.pfb_clock_sync_init,
                pfb_blocks.pfb_clock_sync_windowed_init, dsp.nco_sin,
@@ -218,7 +226,9 @@ def test_default_device_is_the_card():
                modems.PskModem.__init__, modems.Fsk4Modem.__init__,
                dmr.DmrTransmitter.__init__, dmr.DmrReceiver.__init__,
                loops.costas_init_state, loops.mm_init_state,
-               loops.mm_windowed_init_state):
+               loops.mm_windowed_init_state, ofdm.OfdmModem.__init__,
+               ofdm.ofdm_sync_fixed, top_block.TopBlock.__init__,
+               testing.run_block):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     src = inspect.getsource(device)
     assert "is_available" not in src
