@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 Phases (each raises on failure; nothing is caught):
   1. Require a CUDA device, print its name and power limit, pin float32
      matmuls and convolutions to full precision (no TF32).
-  2. Build the Hopper FIR kernels from grtpu_torch/csrc (one nvcc per source,
-     started together, sm_90a).
+  2. Build the Hopper kernels from grtpu_torch/csrc (the FIR kernels and the
+     two recursion kernels: one nvcc per source, four started together,
+     sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
      Each case prints its bound (the larger of useful FLOP over the peak its
@@ -115,9 +116,36 @@ Phases (each raises on failure; nothing is caught):
         its single-stream run through the executor; aggregate Msamples/s;
      e. OfdmPacketModem: 16 bursts through the receiver to parse_frames,
         every CRC passing but the one frame corrupted on purpose.
- 11. Print one JSON line of per-kernel results and, last, the device line.
+ 11. Trellis coding, FEC and the ATSC 8-VSB receive chain (config #5), with
+     the two recursion kernels viterbi_fwd and dfe_feedback_fwd:
+     a. benchmarks/trellis_bench.py's Viterbi bank (FSM4, 4096 x 512,
+        metrics from RandomState(0)) through the kernel, torch.equal to its
+        twin on the card; ms, Msymbols/s, bound and share; B=1 through the
+        kernel and through parallel=True (torch ops), same decisions;
+     b. SCCC (FSM4 outer, the rate-2/3 inner, Interleaver.random(512, 666),
+        8 iterations, 1024 blocks of clean metrics, torch ops): decoded bits
+        equal to the bits sent; Msymbols/s;
+     c. TrellisEncoder -> symbols -> TrellisMetrics -> ViterbiDecoder through
+        StreamExecutor in both run modes: torch.equal across the modes,
+        equal to the bits, viterbi_fwd launched in both;
+     d. config #5 at benchmarks/atsc_bench.py's shape (1029 packets ->
+        transmitter -> field sync mux -> pilot -> RRC -> 8-VSB passband at
+        2.5 samples a symbol, 2.15M samples) -> AtscRfReceiver("lms2") on
+        the card -> AtscReceiver, one warm-up run then five: >= 2 fields,
+        >= 312 packets equal to ones sent, 0 uncorrectable (atsc_bench.py's
+        gates); both kernels launched on the main path (counted on the last
+        run); each kernel held to its twin on the inputs of its last
+        launch in that run (the 12-phase Viterbi over both fields
+        torch.equal, the DFE feedback over a whole field equal in decisions
+        and within 1e-4); the median per-stage times (each stage's function
+        wrapped here, so the receivers take no timing argument) and input
+        Msamples/s.  The DFE twin's step loop is replayed from CUDA graphs,
+        a chunk of symbols a graph (launched one op at a time it takes ~50
+        s a field).  The phase must end within 120 s.
+ 12. Print one JSON line of per-kernel results (the eight kernels) and,
+     last, the device line.
 
-Every executor path of phases 4-10 runs twice eagerly and twice under
+Every executor path of phases 4-11 runs twice eagerly and twice under
 StreamExecutor.run(device_loop=True), each mode in an executor of its own,
 on the same input: the device_loop outputs must be torch.equal to the eager
 ones; both rates are printed (the second runs'), with the first device_loop
@@ -728,7 +756,7 @@ def run_main_path(torch, cf, headline):
         if not torch.equal(got, want):
             fail(f"headline workload output ({key}) differs from the checked "
                  f"output of phase 3")
-    for name in cf.launches:
+    for name in cf.FIR_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
@@ -2273,6 +2301,399 @@ def run_ofdm_packets(torch):
              "corrupted frame passed")
 
 
+# ------------------------------------- phase 11 (trellis, FEC, ATSC: config #5)
+TRELLIS_B, TRELLIS_K = 4096, 512     # benchmarks/trellis_bench.py
+SCCC_B, SCCC_K, SCCC_IT = 1024, 512, 8
+TRELLIS_GRAPH_K, TRELLIS_GRAPH_BLOCKS = 512, 64
+ATSC_RATIO = 2.5                     # benchmarks/atsc_bench.py
+ATSC_FS = 10.762238e6 * ATSC_RATIO
+ATSC_IF = 0.26
+ATSC_PACKETS = int(312 * 3.3)
+ATSC_TIMED_RUNS = 5                  # after one warm-up run
+DFE_TOL = 1e-4
+DFE_TWIN_CHUNK = 4096                # most symbols a replayed twin step
+PHASE11_LIMIT_S = 120.0
+
+
+def fp32_bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations") for ``nbytes`` moved and ``ops``
+    float32 operations (a multiply-add two) at the card's 67 TFLOP/s
+    outside the tensor cores."""
+    return bound(ops, nbytes, "f32")
+
+
+def viterbi_bound(b, t_len, fsm):
+    """The metrics read and the decisions written once; one add and one
+    compare a candidate edge, one subtract a state, per step."""
+    deg = fsm.PS.shape[1]
+    return fp32_bound(b * t_len * (fsm.O + 1) * 4,
+                      b * t_len * fsm.S * (2 * deg + 1))
+
+
+def dfe_bound(n, nfb):
+    """ff read and y written once; a multiply-add (two operations) a
+    feedback tap and ~6 operations of the slicer, per symbol."""
+    return fp32_bound(8 * n, n * (2 * nfb + 6))
+
+
+def run_trellis_bank(torch):
+    """11a: trellis_bench.py's Viterbi bank (FSM4, B=4096, K=512) through
+    the kernel, held torch.equal to the twin on the card; B=1 through the
+    kernel and through parallel=True (torch ops), decisions equal."""
+    from grtpu_torch.ops import cuda_trellis as ct
+    from grtpu_torch.trellis import FSM, viterbi
+
+    fsm4 = FSM.from_convolutional(1, 2, [[0b101, 0b111]])
+    m = torch.from_numpy(np.random.RandomState(0).rand(
+        TRELLIS_B, TRELLIS_K, fsm4.O).astype(np.float32)).cuda()
+    tab = ct.tables(fsm4, "cuda")
+    got = viterbi(fsm4, m)
+    ref = ct.viterbi_ref(m, tab)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref)
+    ms = median_ms(lambda: ct.viterbi_fwd(m, tab))
+    twin_ms = median_ms(lambda: ct.viterbi_ref(m, tab))
+    bms, by = viterbi_bound(TRELLIS_B, TRELLIS_K, fsm4)
+    print(f"11a viterbi bank FSM4 {TRELLIS_B}x{TRELLIS_K}: kernel {ms:.4f} ms "
+          f"({TRELLIS_B * TRELLIS_K / ms / 1e3:.1f} Msymbols/s), twin "
+          f"{twin_ms:.4f} ms, bound {bms:.4f} ms ({by}; chain of {TRELLIS_K} "
+          f"dependent steps), share {bms / ms:.4f}; torch.equal to the twin: "
+          f"{equal}", flush=True)
+    if not equal:
+        fail("viterbi_fwd disagrees with its twin on the trellis bank")
+    one = m[:1].contiguous()
+    seq = viterbi(fsm4, one)
+    par = viterbi(fsm4, one, parallel=True)
+    ms1 = median_ms(lambda: viterbi(fsm4, one))
+    ms_par = median_ms(lambda: viterbi(fsm4, one, parallel=True))
+    same = torch.equal(seq, par)
+    print(f"11a viterbi B=1 K={TRELLIS_K}: kernel {ms1:.4f} ms, parallel=True "
+          f"(torch ops) {ms_par:.4f} ms; same decisions: {same}", flush=True)
+    if not same:
+        fail("the sequential and log-depth Viterbi disagree at B=1")
+
+
+def run_sccc(torch):
+    """11b: SCCC (FSM4 outer, FSM_MSB inner, Interleaver.random(512, 666),
+    8 iterations) over 1024 blocks of clean metrics: the decoded bits equal
+    the bits sent."""
+    from grtpu_torch.trellis import (FSM, Interleaver, calc_metric_cost,
+                                     fsm_encode, sccc_decoder)
+
+    fsm4 = FSM.from_convolutional(1, 2, [[0b101, 0b111]])
+    msb = FSM(4, 4, 8, NS=[0, 1, 2, 3] * 4,
+              OS=[0, 5, 3, 6, 4, 1, 7, 2, 7, 2, 4, 1, 3, 6, 0, 5])
+    il = Interleaver.random(SCCC_K, seed=666)
+    bits = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 2, (SCCC_B, SCCC_K))).cuda()
+    _, mid = fsm_encode(fsm4, bits, 0)
+    _, sym = fsm_encode(msb, mid[:, torch.from_numpy(il.INTER).long().cuda()],
+                        0)
+    table = torch.arange(8, dtype=torch.float32, device="cuda") - 3.5
+    metrics = calc_metric_cost(table[sym.long()], table)
+    dec = sccc_decoder(fsm4, msb, il, metrics, SCCC_IT)      # warm-up
+    secs = median_ms(lambda: sccc_decoder(fsm4, msb, il, metrics,
+                                          SCCC_IT)) / 1e3
+    ok = torch.equal(dec.long(), bits)
+    print(f"11b SCCC {SCCC_B}x{SCCC_K}, {SCCC_IT} iterations (torch ops): "
+          f"{secs:.3f} s a call (median of 5), {SCCC_B * SCCC_K / secs / 1e6:.3f} Msymbols/s; "
+          f"decoded bits equal to the bits sent: {ok}", flush=True)
+    if not ok:
+        fail("the SCCC decoder did not return the bits sent")
+
+
+def run_trellis_graph(torch, cf):
+    """11c: TrellisEncoder -> symbols -> TrellisMetrics -> ViterbiDecoder
+    through StreamExecutor, eager and under device_loop: outputs
+    torch.equal across the modes and equal to the bits; viterbi_fwd
+    launched in both (under device_loop counted at each replay)."""
+    from grtpu_torch import Graph, Port, StreamExecutor
+    from grtpu_torch.blocks.gengen import ChunksToSymbols
+    from grtpu_torch.trellis import (FSM, TrellisEncoder, TrellisMetrics,
+                                     ViterbiDecoder)
+
+    fsm4 = FSM.from_convolutional(1, 2, [[0b101, 0b111]])
+    k = TRELLIS_GRAPH_K
+    bits = np.random.default_rng(2).integers(
+        0, 2, TRELLIS_GRAPH_BLOCKS * k).astype(np.int32)
+    bits.reshape(-1, k)[:, -2:] = 0          # each block ends in state 0
+    pam = np.array([-1.5, -0.5, 0.5, 1.5], np.float32)
+
+    def build():
+        g = Graph()
+        i = g.add_input(Port(torch.int32))
+        o = g.add_output(Port(torch.int32))
+        g.connect(i, TrellisEncoder(fsm4),
+                  ChunksToSymbols(pam, torch.int32, torch.float32),
+                  TrellisMetrics(4, 1, pam), ViterbiDecoder(fsm4, k, 0, 0), o)
+        return StreamExecutor(g, chunk_size=4 * k, device="cuda")
+
+    x = torch.from_numpy(bits).cuda()
+    for name in cf.launches:
+        cf.launches[name] = 0
+    build().run(x)
+    torch.cuda.synchronize()
+    eager_launches = cf.launches["viterbi_fwd"]
+    outs, _, _, loop_launches = two_modes(
+        torch, "11c trellis graph", build, (x,), len(bits),
+        unit="Msymbols/s", cf=cf)
+    ok = np.array_equal(outs[-1].cpu().numpy(), bits)
+    counts = [c["viterbi_fwd"] for c in loop_launches]
+    print(f"11c viterbi_fwd launches: eager {eager_launches}, each "
+          f"device_loop run {counts}; output equal to the bits: {ok}",
+          flush=True)
+    if not ok:
+        fail("the trellis graph did not return its input bits")
+    if eager_launches <= 0 or min(counts) <= 0:
+        fail("viterbi_fwd was not launched in both executor modes")
+
+
+def atsc_passband(torch):
+    """atsc_bench.py's stream: 1029 packets from default_rng(7) ->
+    AtscTransmitter -> AtscFieldSyncMux -> +1.25 pilot -> 201-tap RRC x5,
+    every 2nd sample -> vsb_modulate (IF 0.26 fs, 2.5 samples a symbol)."""
+    from grtpu_torch.models import atsc_rf as rf
+    from grtpu_torch.models.atsc import AtscTransmitter
+    from grtpu_torch.ops.fir import interp_fir_filter
+    from grtpu_torch.utils import firdes
+
+    rng = np.random.default_rng(7)
+    payload = rng.integers(0, 256, (ATSC_PACKETS, 187)).astype(np.uint8)
+    pkts = np.concatenate(
+        [np.full((ATSC_PACKETS, 1), 0x47, np.uint8), payload], axis=1)
+    levels = AtscTransmitter().process(pkts)
+    codes = ((levels + 7) // 2).astype(np.uint8)
+    nseg = len(codes) // 828
+    stream = rf.AtscFieldSyncMux()(codes[: nseg * 828].reshape(nseg, 828))
+    sym = stream.astype(np.float32) * 2 - 7 + 1.25
+    rrc5 = firdes.root_raised_cosine(5.0, 5.0, 1.0, 0.115, 201).astype(
+        np.float32)
+    up5 = interp_fir_filter(torch.cat([torch.zeros(40, device="cuda"),
+                                       torch.from_numpy(sym).cuda()]),
+                            rrc5, 5).cpu().numpy()
+    passband = rf.vsb_modulate(up5[::2].astype(np.float64), ATSC_IF,
+                               ATSC_RATIO)
+    return pkts, passband, nseg
+
+
+def atsc_stages(rf, atsc):
+    """The stages of config #5 whose times 11d prints: (name, owner,
+    attribute, clock).  The receivers' own functions are wrapped, so a
+    stage is exactly one call on the path; "host" marks a stage that ends
+    in a read of the card or runs on the host, the rest are timed with
+    CUDA events."""
+    return [("pb_rrc", rf.AtscRfReceiver, "_passband", "cuda"),
+            ("fpll", rf, "fpll_chunked", "cuda"),
+            ("lpf_dc", rf.AtscRfReceiver, "_baseband", "cuda"),
+            ("btl", rf, "bit_timing_loop", "cuda"),
+            ("fs_correlate", rf, "fs_correlate", "cuda"),
+            ("eq_train", rf.AtscEqualizerDfe, "_adapt", "cuda"),
+            ("eq_filter", rf, "_dfe_filter", "cuda"),
+            ("viterbi12", atsc, "trellis_decode", "host"),
+            ("transport", atsc.AtscReceiver, "_transport", "host")]
+
+
+def wrapped(owner, attr, before, after):
+    """Replace ``owner.attr`` by a function that calls ``before(args)``,
+    the original, then ``after(token)``; returns the original."""
+    fn = getattr(owner, attr)
+
+    def call(*args, **kwargs):
+        token = before(args)
+        out = fn(*args, **kwargs)
+        after(token)
+        return out
+
+    setattr(owner, attr, call)
+    return fn
+
+
+def stage_timer(torch, into, name, clock):
+    """(before, after) that add one time in ms, or a pair of CUDA events,
+    to ``into[name]``."""
+    if clock == "host":
+        return (lambda args: time.perf_counter(),
+                lambda t0: into.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3))
+
+    def before(args):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start
+
+    def after(start):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        into.setdefault(name, []).append((start, end))
+    return before, after
+
+
+def stage_ms(timings) -> dict:
+    """Milliseconds a stage, summed over its calls in one run."""
+    out = {}
+    for name, entries in timings.items():
+        ms = 0.0
+        for e in entries:
+            if isinstance(e, tuple):
+                e[1].synchronize()
+                e = e[0].elapsed_time(e[1])
+            ms += e
+        out[name] = ms
+    return out
+
+
+def dfe_twin_replayed(torch, ff, wfb, ring):
+    """dfe_feedback_ref over the whole of ``ff``, in equal chunks of at most
+    DFE_TWIN_CHUNK symbols, each chunk's step loop replayed from one CUDA
+    graph (StepGraph): the twin's own ops, without ~10 host launches a
+    symbol (~50 s a field).  Returns (y, the final ring)."""
+    from grtpu_torch.ops import cuda_trellis as ct
+    from grtpu_torch.runtime.step_graph import StepGraph
+
+    n = ff.shape[0]
+    c = max(d for d in range(1, DFE_TWIN_CHUNK + 1) if n % d == 0)
+    x, yc, r = ff.new_empty(c), ff.new_empty(c), ring.clone()
+    y = torch.empty_like(ff)
+
+    def step():
+        out, r_out = ct.dfe_feedback_ref(x, wfb, r)
+        yc.copy_(out)
+        r.copy_(r_out)
+
+    graph = StepGraph(step, ff.device)
+    for i in range(0, n, c):
+        x.copy_(ff[i:i + c])
+        graph()
+        y[i:i + c].copy_(yc)
+    return y, r
+
+
+def run_atsc(torch, cf):
+    """11d: config #5 at atsc_bench.py's shape.  Gates: >= 2 fields, >= 312
+    packets equal to ones sent, 0 uncorrectable; viterbi_fwd and
+    dfe_feedback_fwd launched; each kernel held to its twin on the inputs
+    of its last launch in the last timed run (the Viterbi torch.equal, the
+    DFE feedback equal in decisions and within DFE_TOL).  Returns the two
+    kernels' report rows."""
+    from grtpu_torch.models import atsc, atsc_rf as rf
+    from grtpu_torch.ops import cuda_trellis as ct
+
+    (pkts, passband, nseg), build_s = timed(torch, lambda: atsc_passband(torch))
+    print(f"11d ATSC stream: {len(passband)} samples, {nseg} data segments, "
+          f"built in {build_s:.1f} s (host numpy, the RRC on the card)",
+          flush=True)
+    runs = []
+    inputs = {}
+
+    def keep(name):
+        """Keep a copy of the arguments of the kernel's last launch."""
+        return (lambda args: inputs.__setitem__(name, tuple(
+            a.clone() if isinstance(a, torch.Tensor) else a for a in args)),
+                lambda token: None)
+
+    for run in range(1 + ATSC_TIMED_RUNS):
+        timings = {}
+        hooks = [(owner, attr, *stage_timer(torch, timings, name, clock))
+                 for name, owner, attr, clock in atsc_stages(rf, atsc)]
+        hooks += [(ct, name, *keep(name))
+                  for name in ("viterbi_fwd", "dfe_feedback")]
+        saved = [(owner, attr, wrapped(owner, attr, b, a))
+                 for owner, attr, b, a in hooks]
+        try:
+            for name in cf.launches:
+                cf.launches[name] = 0
+            rx = rf.AtscRfReceiver(fs=ATSC_FS, if_freq=ATSC_IF * ATSC_FS,
+                                   ratio=ATSC_RATIO, equalizer="lms2")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fields = rx.process(passband)
+            got, bad = atsc.AtscReceiver().process(
+                np.concatenate([f.reshape(-1) for f in fields]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(cf.launches)
+        finally:
+            for owner, attr, fn in reversed(saved):
+                setattr(owner, attr, fn)
+        runs.append((fields, got, bad, secs, stage_ms(timings), counts))
+    fields, got, bad, _, _, counts = runs[-1]
+    secs = float(np.median([r[3] for r in runs[1:]]))
+    ms = {k: float(np.median([r[4][k] for r in runs[1:]])) for k in runs[-1][4]}
+    print(f"11d end to end: first run {runs[0][3]:.2f} s (captures included), "
+          f"median of the next {ATSC_TIMED_RUNS} {secs:.2f} s = "
+          f"{len(passband) / secs / 1e6:.3f} Msamples/s of input "
+          f"({', '.join(f'{r[3]:.2f}' for r in runs[1:])} s)", flush=True)
+    sent = {p.tobytes() for p in pkts}
+    match = sum(g.tobytes() in sent for g in got)
+    print(f"11d config #5: {fields.shape[0]} fields, {len(got)} packets, "
+          f"{match} equal to ones sent, {bad} uncorrectable (gates >= 2, "
+          f">= 312, 0)", flush=True)
+    print(f"11d stage ms (median of {ATSC_TIMED_RUNS} runs; host clock for "
+          "viterbi12 and transport, CUDA events for the rest): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
+    print(f"phase 11 path launches (11d's last run): {counts}", flush=True)
+    if fields.shape[0] < 2 or match < 312 or bad:
+        fail("config #5 missed a gate of atsc_bench.py")
+    if counts["viterbi_fwd"] <= 0 or counts["dfe_feedback_fwd"] <= 0:
+        fail("config #5 did not launch viterbi_fwd and dfe_feedback_fwd")
+
+    # the 12-phase decode as the path launched it: kernel against twin
+    m, tab, *ends = inputs["viterbi_fwd"]
+    vk = ct.viterbi_fwd(m, tab, *ends)
+    vr, vr_s = timed(torch, lambda: ct.viterbi_ref(m, tab, *ends))
+    v_equal = torch.equal(vk, vr)
+    v_ms = median_ms(lambda: ct.viterbi_fwd(m, tab, *ends))
+    b12, t12 = m.shape[:2]
+    vb, vby = viterbi_bound(b12, t12, atsc.atsc_trellis_fsm())
+    print(f"11d viterbi_fwd {b12}x{t12} (the path's call, "
+          f"{fields.shape[0]} fields): kernel {v_ms:.4f} ms, twin "
+          f"{vr_s * 1e3:.1f} ms (one run), bound {vb:.6f} ms ({vby}; chain "
+          f"of {t12} dependent steps); torch.equal to the twin: {v_equal}",
+          flush=True)
+    if not v_equal:
+        fail("viterbi_fwd disagrees with its twin on the path's call")
+
+    # the DFE feedback of the path's last field: kernel against twin
+    ff, wfb, ring = inputs["dfe_feedback"]
+    yk, rk = ct.dfe_feedback(ff, wfb, ring)
+    (yr, rr), yr_s = timed(torch, lambda: dfe_twin_replayed(torch, ff, wfb,
+                                                            ring))
+    d_equal = (torch.equal(ct.slice8(yk), ct.slice8(yr))
+               and torch.equal(rk, rr))
+    err = (yk - yr).abs().max().item()
+    d_ms = median_ms(lambda: ct.dfe_feedback(ff, wfb, ring))
+    n_ff = ff.shape[0]
+    db, dby = dfe_bound(n_ff, wfb.shape[0])
+    print(f"11d dfe_feedback_fwd {n_ff} symbols (the path's last field): "
+          f"kernel {d_ms:.4f} ms, twin {yr_s * 1e3:.1f} ms (one run, its "
+          f"step loop replayed from CUDA graphs, captures included), bound "
+          f"{db:.6f} ms ({dby}; chain of {n_ff} dependent steps); decisions "
+          f"and final ring equal: {d_equal}, max_abs_err {err:.3e} (tol "
+          f"{DFE_TOL:g})", flush=True)
+    if not d_equal or not err <= DFE_TOL:
+        fail("dfe_feedback_fwd disagrees with its twin")
+    rows = {
+        "viterbi_fwd": {
+            "name": "viterbi_fwd", "route": "cuda",
+            "source": "grtpu_torch/csrc/trellis_viterbi.cu",
+            "replaces": "grtpu/trellis/algorithms.py:89 and :113 (lax.scan, "
+                        "vmapped at grtpu/models/atsc.py:245; no Pallas "
+                        "kernel)",
+            "launches": counts["viterbi_fwd"], "max_abs_err": 0.0,
+            "ms": v_ms, "plain_ms": vr_s * 1e3, "bound_ms": vb,
+            "bound_by": vby, "library_ms": None},
+        "dfe_feedback_fwd": {
+            "name": "dfe_feedback_fwd", "route": "cuda",
+            "source": "grtpu_torch/csrc/atsc_dfe.cu",
+            "replaces": "grtpu/models/atsc_rf.py:596 (lax.scan; no Pallas "
+                        "kernel)",
+            "launches": counts["dfe_feedback_fwd"], "max_abs_err": err,
+            "ms": d_ms, "plain_ms": yr_s * 1e3, "bound_ms": db,
+            "bound_by": dby, "library_ms": None},
+    }
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2361,7 +2782,20 @@ def main() -> int:
     if sum(launches10.values()):
         fail("phase 10 reached a hand kernel")
 
-    # phase 11: report, for each kernel the case the main path launches most
+    # phase 11: trellis, FEC and the ATSC 8-VSB receive chain (config #5);
+    # its main path is 11d, whose launch counts it reports
+    t11 = time.perf_counter()
+    run_trellis_bank(torch)
+    run_sccc(torch)
+    run_trellis_graph(torch, cf)
+    rows11 = run_atsc(torch, cf)
+    secs11 = time.perf_counter() - t11
+    print(f"phase 11 took {secs11:.1f} s (limit {PHASE11_LIMIT_S:g} s)",
+          flush=True)
+    if secs11 > PHASE11_LIMIT_S:
+        fail(f"phase 11 took {secs11:.1f} s")
+
+    # phase 12: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),
@@ -2382,6 +2816,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
         print(f"reported for {name}: {case_name} {prec}")
+    kernels += [rows11["viterbi_fwd"], rows11["dfe_feedback_fwd"]]
+    print("reported for viterbi_fwd and dfe_feedback_fwd: the inputs of "
+          "their last launch in 11d's last run")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

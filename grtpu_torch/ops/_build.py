@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels in ``grtpu_torch/csrc`` at first use.
 
-``nvcc`` compiles each source (``fir_tile.cu``, ``fir_decim.cu``; both
-include ``fir_common.cuh``) for ``sm_90a`` into a shared library of its own
+``nvcc`` compiles each source (``fir_tile.cu`` and ``fir_decim.cu``, which
+include ``fir_common.cuh``; ``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the
+two recursion kernels) for ``sm_90a`` into a shared library of its own
 with a plain C interface, all compilers started together, and the libraries
 are loaded with ``ctypes``.  They are cached under ``build/grtpu_torch/`` at
 the repository root (listed in ``.gitignore``), keyed on a hash of the
@@ -21,7 +22,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu")
+SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu",
+           CSRC / "trellis_viterbi.cu", CSRC / "atsc_dfe.cu")
 HEADERS = (CSRC / "fir_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -85,7 +87,7 @@ def library() -> SimpleNamespace:
     global _lib
     if _lib is not None:
         return _lib
-    tile, decim = (ctypes.CDLL(str(path)) for path in build())
+    tile, decim, viterbi, dfe = (ctypes.CDLL(str(path)) for path in build())
     i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
     sigs = {
         tile: {
@@ -104,6 +106,15 @@ def library() -> SimpleNamespace:
             "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
             "fir_decim_smem": ([i] * 5, i64),
             "fir_decim_mma_smem": ([i] * 5, i64),
+        },
+        viterbi: {
+            "viterbi_fwd": ([p] * 4 + [i] * 8 + [p, p, p], i),
+            "viterbi_smem": ([i, i, i], i64),
+            "trellis_error_string": ([i], ctypes.c_char_p),
+        },
+        dfe: {
+            "dfe_feedback_fwd": ([p, p, p, i, i, p, p, p], i),
+            "dfe_error_string": ([i], ctypes.c_char_p),
         },
     }
     lib = SimpleNamespace()

@@ -62,10 +62,12 @@ from grtpu_torch.ops.fir import (PRECISIONS, fir_filter, pad_last,
 
 LANE = 128
 
-# Kernel launch counts, by the name of the C entry that was called.
-launches = {"fir_tile_fwd": 0, "fir_toeplitz_fwd": 0, "fir_decim_fwd": 0,
-            "fir_decim_mma_fwd": 0, "fir_cascade_fwd": 0,
-            "fir_cascade_mma_fwd": 0}
+# Kernel launch counts, by the name of the C entry that was called: the FIR
+# kernels here, and the two recursion kernels of grtpu_torch.ops.cuda_trellis,
+# so that one record of a CUDA-graph capture holds them all.
+FIR_KERNELS = ("fir_tile_fwd", "fir_toeplitz_fwd", "fir_decim_fwd",
+               "fir_decim_mma_fwd", "fir_cascade_fwd", "fir_cascade_mma_fwd")
+launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd"), 0)
 
 # Open records of CUDA-graph captures (recording_launches), innermost last.
 _recording = []
@@ -490,6 +492,12 @@ def _check(err: int, name: str):
 
         raise RuntimeError(f"{name} launch failed: "
                            + library().fir_error_string(err).decode())
+    count_launch(name)
+
+
+def count_launch(name: str):
+    """Count one launch of kernel ``name``: in the record of the capture
+    under way, if any (:func:`recording_launches`), else in ``launches``."""
     (_recording[-1] if _recording else launches)[name] += 1
 
 

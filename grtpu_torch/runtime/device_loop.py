@@ -42,14 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import gc
-import time
 from typing import Dict, List, Optional
 
 import torch
 
 from grtpu_torch.runtime.executor import _edge_key, _leaves, _rebuild
 from grtpu_torch.runtime.graph import Pad
+from grtpu_torch.runtime.step_graph import StepGraph
 
 
 def _clone_tree(tree):
@@ -109,16 +108,6 @@ def _capture_invalidated() -> bool:
     return err == 0 and status.value == 2     # cudaStreamCaptureStatusInvalidated
 
 
-class _Piece:
-    __slots__ = ("fn", "calls", "graph", "launches")
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.calls = 0
-        self.graph = None
-        self.launches = None
-
-
 class DeviceLoop:
     """The static buffers and the captured pieces of one executor's step."""
 
@@ -163,7 +152,7 @@ class DeviceLoop:
         self.edges: Dict[str, torch.Tensor] = {}
         self.caps: Dict[str, tuple] = {}
         self.tagcaps: Dict[str, object] = {}     # tag records, by caps key
-        self.pieces: Dict[tuple, _Piece] = {}
+        self.pieces: Dict[tuple, StepGraph] = {}
         self.current = None          # the block a piece is applying
         self.failure = None          # the first error raised inside a piece
         self.capture_seconds = 0.0   # host time spent capturing the graphs
@@ -294,35 +283,18 @@ class DeviceLoop:
     def _run(self, key):
         p = self.pieces.get(key)
         if p is None:
-            p = self.pieces[key] = _Piece(self._piece(*key))
-        if not self.cuda or p.calls == 0:
-            p.fn(p.calls == 0)
-            p.calls += 1
-            return
-        if p.graph is None:
-            p.graph, p.launches = self._capture(p)
-        p.graph.replay()
-        self._add_launches(p.launches)
+            fn = self._piece(*key)
+            p = self.pieces[key] = StepGraph(None, self.device)
+            # the piece's argument: whether this is its first call
+            p.step = lambda: fn(p.calls == 0)
+        if p.cuda and p.calls and p.graph is None:
+            self._capture(p)
+        p()
 
     def _capture(self, p):
-        from grtpu_torch.ops.cuda_fir import add_launches, recording_launches
-
-        self._add_launches = add_launches
-        graph = torch.cuda.CUDAGraph()
         self.current = self.failure = None
-        t0 = time.perf_counter()
-        # A CUDA graph that the garbage collector frees during the capture
-        # (an earlier executor's, kept by a reference cycle) releases its
-        # memory with a call the capture cannot hold, and CUDA then
-        # invalidates the capture without an error: collect first, and let
-        # nothing be collected until the capture has ended.
-        gc.collect()
-        gc_was_on = gc.isenabled()
-        gc.disable()
         try:
-            with recording_launches() as record:
-                with torch.cuda.graph(graph):
-                    p.fn(False)
+            p.capture()
         except Exception as err:
             first = self.failure or err
             where = ("" if self.current is None
@@ -333,11 +305,7 @@ class DeviceLoop:
                 f"cannot read the card from the host (.item(), int(tensor), "
                 f"a shape that depends on data) or copy host memory to it; "
                 f"run this graph without device_loop") from err
-        finally:
-            if gc_was_on:
-                gc.enable()
-        self.capture_seconds += time.perf_counter() - t0
-        return graph, record
+        self.capture_seconds += p.capture_seconds
 
     def _piece(self, okey, ri):
         """The function of range ``ri`` of segment ``okey``: reads and

@@ -189,7 +189,8 @@ def test_launch_counts(dev):
     after = {n: cf.launches[n] - before[n] for n in cf.launches}
     assert after == {"fir_tile_fwd": 1, "fir_toeplitz_fwd": 0,
                      "fir_decim_fwd": 2, "fir_decim_mma_fwd": 1,
-                     "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0}
+                     "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0,
+                     "viterbi_fwd": 0, "dfe_feedback_fwd": 0}
 
 
 ODD_DECIM_CASES = [

@@ -142,7 +142,9 @@ PORTED_WHOLE = ["ops.fir", "ops.dsp", "ops.pfb", "ops.mmse_interp",
                 "blocks.convert", "blocks.gengen", "blocks.stream",
                 "blocks.filter", "blocks.analog", "blocks.pfb", "models.fm",
                 "utils.optfir", "utils.remez_engine", "utils.eng_notation",
-                "utils.firdes"]
+                "utils.firdes", "trellis.fsm", "trellis.interleaver",
+                "trellis.fsm_utils", "trellis.algorithms", "trellis.blocks",
+                "fec.rs", "fec.conv", "models.atsc", "models.atsc_rf"]
 # grtpu keeps the matmul mode in a module global; the port takes it per call
 NOT_PORTED_BY_DESIGN = {"ops.fir": {"set_precision"}}
 
@@ -187,7 +189,12 @@ def test_import_pulls_in_no_jax():
             "grtpu_torch.runtime.device_loop, grtpu_torch.utils.testing, "
             "grtpu_torch.digital.packet, grtpu_torch.digital.correlate, "
             "grtpu_torch.digital.packet_blocks, grtpu_torch.digital.pkt, "
-            "grtpu_torch.digital.tunnel, grtpu_torch.digital.ofdm; "
+            "grtpu_torch.digital.tunnel, grtpu_torch.digital.ofdm, "
+            "grtpu_torch.trellis, grtpu_torch.trellis.fsm_utils, "
+            "grtpu_torch.trellis.algorithms, grtpu_torch.trellis.blocks, "
+            "grtpu_torch.fec.rs, grtpu_torch.fec.conv, "
+            "grtpu_torch.ops.cuda_trellis, grtpu_torch.runtime.step_graph, "
+            "grtpu_torch.models.atsc, grtpu_torch.models.atsc_rf; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'grtpu' "
             "or m.startswith('grtpu.')); print(bad); "
@@ -218,6 +225,8 @@ def test_default_device_is_the_card():
     from grtpu_torch.ops import dsp
     from grtpu_torch.runtime import top_block
     from grtpu_torch.utils import testing
+    from grtpu_torch.fec import conv
+    from grtpu_torch.models import atsc, atsc_rf
 
     for fn in (pfb_blocks.pfb_clock_sync_init,
                pfb_blocks.pfb_clock_sync_windowed_init, dsp.nco_sin,
@@ -228,7 +237,14 @@ def test_default_device_is_the_card():
                loops.costas_init_state, loops.mm_init_state,
                loops.mm_windowed_init_state, ofdm.OfdmModem.__init__,
                ofdm.ofdm_sync_fixed, top_block.TopBlock.__init__,
-               testing.run_block):
+               testing.run_block, atsc.trellis_decode,
+               conv.conv_encode_27_packed,
+               atsc.AtscReceiver.__init__, atsc_rf.state_from_numpy,
+               atsc_rf.fpll_init_state, atsc_rf.btl_init_state,
+               atsc_rf.AtscEqualizerLms.__init__,
+               atsc_rf.AtscEqualizerDfe.__init__,
+               atsc_rf.AtscEqualizerNop.__init__,
+               atsc_rf.AtscRfReceiver.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     src = inspect.getsource(device)
     assert "is_available" not in src
