@@ -119,9 +119,11 @@ Phases (each raises on failure; nothing is caught):
  11. Trellis coding, FEC and the ATSC 8-VSB receive chain (config #5), with
      the two recursion kernels viterbi_fwd and dfe_feedback_fwd:
      a. benchmarks/trellis_bench.py's Viterbi bank (FSM4, 4096 x 512,
-        metrics from RandomState(0)) through the kernel, torch.equal to its
-        twin on the card; ms, Msymbols/s, bound and share; B=1 through the
-        kernel and through parallel=True (torch ops), same decisions;
+        metrics from RandomState(0)) through the kernel's warp route and
+        its block route, each torch.equal to its twin on the card; ms, ns a
+        dependent step, the first design's time ("was"), Msymbols/s, bound
+        and share; B=1 through the kernel and through parallel=True (torch
+        ops), same decisions;
      b. SCCC (FSM4 outer, the rate-2/3 inner, Interleaver.random(512, 666),
         8 iterations, 1024 blocks of clean metrics, torch ops): decoded bits
         equal to the bits sent; Msymbols/s;
@@ -135,9 +137,10 @@ Phases (each raises on failure; nothing is caught):
         >= 312 packets equal to ones sent, 0 uncorrectable (atsc_bench.py's
         gates); both kernels launched on the main path (counted on the last
         run); each kernel held to its twin on the inputs of its last
-        launch in that run (the 12-phase Viterbi over both fields
-        torch.equal, the DFE feedback over a whole field equal in decisions
-        and within 1e-4); the median per-stage times (each stage's function
+        launch in that run (the 12-phase Viterbi over both fields, on both
+        routes, torch.equal; the DFE feedback over a whole field equal in
+        decisions and within 1e-4), each with ms, ns a dependent step,
+        the first design's time, bound and share; the median per-stage times (each stage's function
         wrapped here, so the receivers take no timing argument) and input
         Msamples/s.  The DFE twin's step loop is replayed from CUDA graphs,
         a chunk of symbols a graph (launched one op at a time it takes ~50
@@ -223,6 +226,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """A kernel's milliseconds a call: the median over ``rounds`` of
+    ``cuda_ms(fn, reps)``, calls back to back, so that the host's share of a
+    call hides behind the card's work (a single call's time, median_ms,
+    counts it where the call is short)."""
+    return float(np.median([cuda_ms(fn, reps) for _ in range(rounds)]))
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -2313,6 +2324,11 @@ ATSC_TIMED_RUNS = 5                  # after one warm-up run
 DFE_TOL = 1e-4
 DFE_TWIN_CHUNK = 4096                # most symbols a replayed twin step
 PHASE11_LIMIT_S = 120.0
+# the first design of each recursion kernel (one block a row and a block
+# max a step; a 192-term warp dot a step), in ms on an NVIDIA H100 80GB
+# HBM3 at 700 W: printed beside each new time as "was"
+WAS_MS = {"bank": "0.4333-0.4924", "b1": "0.2796-0.3558",
+          "path": "23.9513-24.2314", "dfe": "41.7449-41.7589"}
 
 
 def fp32_bound(nbytes: float, ops: float):
@@ -2338,8 +2354,9 @@ def dfe_bound(n, nfb):
 
 def run_trellis_bank(torch):
     """11a: trellis_bench.py's Viterbi bank (FSM4, B=4096, K=512) through
-    the kernel, held torch.equal to the twin on the card; B=1 through the
-    kernel and through parallel=True (torch ops), decisions equal."""
+    the kernel's chosen (warp) route and its block route, each held
+    torch.equal to the twin on the card; B=1 through the kernel and through
+    parallel=True (torch ops), decisions equal."""
     from grtpu_torch.ops import cuda_trellis as ct
     from grtpu_torch.trellis import FSM, viterbi
 
@@ -2351,24 +2368,38 @@ def run_trellis_bank(torch):
     ref = ct.viterbi_ref(m, tab)
     torch.cuda.synchronize()
     equal = torch.equal(got, ref)
-    ms = median_ms(lambda: ct.viterbi_fwd(m, tab))
+    block = ct.viterbi_fwd(m, tab, _route="block")
+    equal = equal and torch.equal(block, ref)
+    ms = launch_ms(lambda: ct.viterbi_fwd(m, tab))
+    one_ms = median_ms(lambda: ct.viterbi_fwd(m, tab))
+    block_ms = launch_ms(lambda: ct.viterbi_fwd(m, tab, _route="block"))
     twin_ms = median_ms(lambda: ct.viterbi_ref(m, tab))
     bms, by = viterbi_bound(TRELLIS_B, TRELLIS_K, fsm4)
-    print(f"11a viterbi bank FSM4 {TRELLIS_B}x{TRELLIS_K}: kernel {ms:.4f} ms "
-          f"({TRELLIS_B * TRELLIS_K / ms / 1e3:.1f} Msymbols/s), twin "
+    print(f"11a viterbi bank FSM4 {TRELLIS_B}x{TRELLIS_K}: kernel "
+          f"({ct.viterbi_route(fsm4.S, 2, fsm4.O)} route) {ms:.4f} ms = "
+          f"{ms * 1e6 / TRELLIS_K:.1f} ns a dependent step "
+          f"({TRELLIS_B * TRELLIS_K / ms / 1e3:.1f} Msymbols/s; was "
+          f"{WAS_MS['bank']}; one call with its host side {one_ms:.4f} "
+          f"ms), block route {block_ms:.4f} ms, twin "
           f"{twin_ms:.4f} ms, bound {bms:.4f} ms ({by}; chain of {TRELLIS_K} "
-          f"dependent steps), share {bms / ms:.4f}; torch.equal to the twin: "
-          f"{equal}", flush=True)
+          f"dependent steps), share {bms / ms:.4f}; both routes torch.equal "
+          f"to the twin: {equal}", flush=True)
     if not equal:
         fail("viterbi_fwd disagrees with its twin on the trellis bank")
     one = m[:1].contiguous()
     seq = viterbi(fsm4, one)
     par = viterbi(fsm4, one, parallel=True)
-    ms1 = median_ms(lambda: viterbi(fsm4, one))
+    ms1 = launch_ms(lambda: viterbi(fsm4, one))
+    one1_ms = median_ms(lambda: viterbi(fsm4, one))
     ms_par = median_ms(lambda: viterbi(fsm4, one, parallel=True))
     same = torch.equal(seq, par)
-    print(f"11a viterbi B=1 K={TRELLIS_K}: kernel {ms1:.4f} ms, parallel=True "
-          f"(torch ops) {ms_par:.4f} ms; same decisions: {same}", flush=True)
+    b1, _ = viterbi_bound(1, TRELLIS_K, fsm4)
+    print(f"11a viterbi B=1 K={TRELLIS_K}: kernel {ms1:.4f} ms = "
+          f"{ms1 * 1e6 / TRELLIS_K:.1f} ns a dependent step (was "
+          f"{WAS_MS['b1']}; one call with its host side {one1_ms:.4f} ms), "
+          f"bound {b1:.6f} ms, share {b1 / ms1:.5f}; "
+          f"parallel=True (torch ops) {ms_par:.4f} ms; same decisions: {same}",
+          flush=True)
     if not same:
         fail("the sequential and log-depth Viterbi disagree at B=1")
 
@@ -2640,16 +2671,24 @@ def run_atsc(torch, cf):
     # the 12-phase decode as the path launched it: kernel against twin
     m, tab, *ends = inputs["viterbi_fwd"]
     vk = ct.viterbi_fwd(m, tab, *ends)
+    vblock = ct.viterbi_fwd(m, tab, *ends, _route="block")
     vr, vr_s = timed(torch, lambda: ct.viterbi_ref(m, tab, *ends))
-    v_equal = torch.equal(vk, vr)
-    v_ms = median_ms(lambda: ct.viterbi_fwd(m, tab, *ends))
+    v_equal = torch.equal(vk, vr) and torch.equal(vblock, vr)
+    v_ms = launch_ms(lambda: ct.viterbi_fwd(m, tab, *ends))
+    vblock_ms = launch_ms(lambda: ct.viterbi_fwd(m, tab, *ends,
+                                                 _route="block"), reps=4)
     b12, t12 = m.shape[:2]
-    vb, vby = viterbi_bound(b12, t12, atsc.atsc_trellis_fsm())
+    fsm = atsc.atsc_trellis_fsm()
+    vb, vby = viterbi_bound(b12, t12, fsm)
     print(f"11d viterbi_fwd {b12}x{t12} (the path's call, "
-          f"{fields.shape[0]} fields): kernel {v_ms:.4f} ms, twin "
-          f"{vr_s * 1e3:.1f} ms (one run), bound {vb:.6f} ms ({vby}; chain "
-          f"of {t12} dependent steps); torch.equal to the twin: {v_equal}",
-          flush=True)
+          f"{fields.shape[0]} fields): kernel "
+          f"({ct.viterbi_route(fsm.S, fsm.PS.shape[1], fsm.O)} route) "
+          f"{v_ms:.4f} ms = {v_ms * 1e6 / t12:.1f} ns a dependent step (was "
+          f"{WAS_MS['path']}), block route {vblock_ms:.4f} ms = "
+          f"{vblock_ms * 1e6 / t12:.1f} ns a step, twin {vr_s * 1e3:.1f} ms "
+          f"(one run), bound {vb:.6f} ms ({vby}; chain of {t12} dependent "
+          f"steps), share {vb / v_ms:.6f}; both routes torch.equal to the "
+          f"twin: {v_equal}", flush=True)
     if not v_equal:
         fail("viterbi_fwd disagrees with its twin on the path's call")
 
@@ -2661,15 +2700,16 @@ def run_atsc(torch, cf):
     d_equal = (torch.equal(ct.slice8(yk), ct.slice8(yr))
                and torch.equal(rk, rr))
     err = (yk - yr).abs().max().item()
-    d_ms = median_ms(lambda: ct.dfe_feedback(ff, wfb, ring))
+    d_ms = launch_ms(lambda: ct.dfe_feedback(ff, wfb, ring), reps=4)
     n_ff = ff.shape[0]
     db, dby = dfe_bound(n_ff, wfb.shape[0])
     print(f"11d dfe_feedback_fwd {n_ff} symbols (the path's last field): "
-          f"kernel {d_ms:.4f} ms, twin {yr_s * 1e3:.1f} ms (one run, its "
-          f"step loop replayed from CUDA graphs, captures included), bound "
-          f"{db:.6f} ms ({dby}; chain of {n_ff} dependent steps); decisions "
-          f"and final ring equal: {d_equal}, max_abs_err {err:.3e} (tol "
-          f"{DFE_TOL:g})", flush=True)
+          f"kernel {d_ms:.4f} ms = {d_ms * 1e6 / n_ff:.1f} ns a dependent "
+          f"step (was {WAS_MS['dfe']}), twin {yr_s * 1e3:.1f} ms (one run, "
+          f"its step loop replayed from CUDA graphs, captures included), "
+          f"bound {db:.6f} ms ({dby}; chain of {n_ff} dependent steps), "
+          f"share {db / d_ms:.6f}; decisions and final ring equal: "
+          f"{d_equal}, max_abs_err {err:.3e} (tol {DFE_TOL:g})", flush=True)
     if not d_equal or not err <= DFE_TOL:
         fail("dfe_feedback_fwd disagrees with its twin")
     rows = {

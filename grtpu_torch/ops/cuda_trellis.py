@@ -2,19 +2,31 @@
 
 Neither replaces a Pallas kernel: grtpu runs both as ``lax.scan``, which the
 port would otherwise run as a Python loop of small torch ops, one launch
-each, millions a field.
+each, millions a field.  Both are bound by their chains of dependent steps,
+not by bytes or operations, and are designed for the latency of one step.
 
 * ``viterbi_fwd`` (``csrc/trellis_viterbi.cu``): the table-driven Viterbi
   decoder of ``grtpu.trellis.algorithms.viterbi`` (forward scan ``:89``,
-  traceback ``:113``) over a batch of rows, one CUDA block a row and one
-  thread a state.  :func:`viterbi_ref` is its plain twin, the same step loop
-  vectorized over the rows; the two agree exactly (every step is one float32
-  add, compare or subtract, in the same order).
+  traceback ``:113``) over a batch of rows.  :func:`viterbi_route` picks one
+  of two routes by the FSM's shape.  The warp route (up to 32 states,
+  in-degree 8, no missing edge) gives each state a lane and packs 32 / S'
+  rows into a warp (S' the power of two >= S): the predecessors' metrics
+  come by shuffle, the row's max by shuffles over the row's own lanes, the
+  metrics are staged into shared memory a tile ahead, and the decisions
+  leave as ballot words, 32 steps in one store; the traceback walks them
+  back, one shuffle a step.  The block route (up to 1024 states) runs one
+  block a row and one thread a state, its metrics staged the same way.  :func:`viterbi_ref` is the plain
+  twin, the same step loop vectorized over the rows; both routes agree with
+  it exactly (every step is one float32 add, compare or subtract, in the
+  same order).
 * ``dfe_feedback_fwd`` (``csrc/atsc_dfe.cu``): the feedback recursion of the
   decision-feedback equalizer, ``grtpu.models.atsc_rf._dfe_filter``'s scan
-  (``:596``), one warp.  :func:`dfe_feedback_ref` is its plain twin; the
-  kernel sums the 192-term dot in another order than ``torch.dot``, so the
-  two are held to equal decisions and outputs within 1e-4.
+  (``:596``), one warp.  The dot over the ring is transposed: the warp keeps
+  the partial sums of the next nfb outputs and adds each new decision into
+  all of them, and every lane forms each decision itself, so a step's chain
+  is one multiply-add, a subtract and the slicer.  :func:`dfe_feedback_ref` is its plain twin; the kernel sums in
+  time order (the ring's terms first), not in ``torch.dot``'s, so the two
+  are held to equal decisions and outputs within 1e-4.
 
 Dispatch is by the tensor's device: a CPU tensor runs the twin, a CUDA
 tensor launches the kernel (building it at first use) or raises.  Each
@@ -24,6 +36,7 @@ kernel's name (in the open record of a CUDA-graph capture, if any).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -32,19 +45,27 @@ import torch
 from grtpu_torch.ops.cuda_fir import _raw_stream, count_launch
 
 NEG = -1e9
-MAX_STATES = 1024        # one thread a state in one block
+MAX_STATES = 1024        # block route: one thread a state in one block
+WARP_MAX_STATES = 32     # warp route: one lane a state
+WARP_MAX_DEG = 8         # warp route: a lane's tables in 4 * 8 registers
+_WARP_TILE = 32          # warp route: steps of a metric tile
+_WARPS = 4               # warp route: most warps a block
+_SMS = 132               # H100 SXM: SMs, over which the warps spread first
+_BLOCK_STEPS = 32        # block route: most steps of a metric tile
 _SMEM = 48 * 1024        # a block's shared memory without an opt-in
 
 
 class TrellisTables(NamedTuple):
     """An FSM's predecessor tables on one device: ``ps``, ``pi`` (S, deg)
     int32 with -1 for a missing edge, ``eo`` (S, deg) int32, the output
-    symbol of each edge (``OS[max(PS, 0), max(PI, 0)]``), and ``O``, the
-    number of output symbols (the metrics' last axis)."""
+    symbol of each edge (``OS[max(PS, 0), max(PI, 0)]``), ``O``, the
+    number of output symbols (the metrics' last axis), and ``complete``:
+    no edge is missing."""
     ps: torch.Tensor
     pi: torch.Tensor
     eo: torch.Tensor
     O: int
+    complete: bool = True
 
 
 def tables(fsm, device) -> TrellisTables:
@@ -58,7 +79,7 @@ def tables(fsm, device) -> TrellisTables:
         eo = np.asarray(fsm.OS)[np.maximum(ps, 0), np.maximum(pi, 0)]
         cache[key] = TrellisTables(*(
             torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(key)
-            for a in (ps, pi, eo)), int(fsm.O))
+            for a in (ps, pi, eo)), int(fsm.O), bool((ps >= 0).all()))
     return cache[key]
 
 
@@ -144,40 +165,110 @@ def _launch(x: torch.Tensor, name: str, fn, args, err_string):
     count_launch(name)
 
 
-def viterbi_tile_steps(s_count: int, deg: int, t_len: int) -> int:
-    """Steps of the traceback tile that keep a block's shared memory within
-    48 KB (path metrics, tables and the tile of int8 decisions)."""
+def _rows_per_warp(s_count: int) -> int:
+    """Rows a warp decodes on the warp route: 32 / S', S' the power of two
+    >= S."""
+    return 32 >> (s_count - 1).bit_length()
+
+
+def _warp_bytes(s_count: int, o: int) -> int:
+    """Shared memory of one warp on the warp route: a 32-step metric tile
+    of its rows, each output symbol's run of steps padded to 33 floats (so
+    that a step's reads fall in distinct banks), double-buffered."""
+    return 2 * _rows_per_warp(s_count) * (_WARP_TILE + 1) * o * 4
+
+
+def viterbi_route(s_count: int, deg: int, o: int,
+                  complete: bool = True) -> str:
+    """The route ``viterbi_fwd`` takes for an FSM of ``s_count`` states,
+    in-degree ``deg`` and ``o`` output symbols: ``"warp"`` where a state
+    fits a lane (S <= 32), its tables the lane's registers (deg <= 8), a
+    warp's metric tile 48 KB of shared memory and no edge is missing (a
+    missing edge's NEG would cost every step of the chain a select);
+    ``"block"`` otherwise."""
+    if (s_count <= WARP_MAX_STATES and deg <= WARP_MAX_DEG and complete
+            and _warp_bytes(s_count, o) <= _SMEM):
+        return "warp"
+    return "block"
+
+
+class ViterbiPlan(NamedTuple):
+    """How one ``viterbi_fwd`` call launches: its ``route``; ``warps`` a
+    block (warp route: one while the card has an SM for each warp, else up
+    to four); ``steps`` of a metric tile and ``tb_steps`` of a
+    traceback tile (block route); ``smem``, a block's bytes of shared
+    memory, within 48 KB on both routes; ``scratch``, the bytes of the
+    decisions (warp route: ceil(log2 deg) 32-bit ballot words a warp and
+    step; block route: one int8 a row, step and state)."""
+    route: str
+    warps: int
+    steps: int
+    tb_steps: int
+    smem: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def viterbi_plan(s_count: int, deg: int, o: int, b: int, t_len: int,
+                 route=None, complete: bool = True) -> ViterbiPlan:
+    """The launch of a (b, t_len, o) call on ``route`` (by default
+    :func:`viterbi_route`'s)."""
+    auto = viterbi_route(s_count, deg, o, complete)
+    route = route or auto
+    if route == "warp":
+        if auto != "warp":
+            raise ValueError(f"the warp route takes at most {WARP_MAX_STATES}"
+                             f" states, in-degree {WARP_MAX_DEG}, a tile "
+                             f"within 48 KB and no missing edge (S={s_count},"
+                             f" in-degree {deg}, O={o}, complete={complete})")
+        per_warp = _warp_bytes(s_count, o)
+        n_warps = -(-b // _rows_per_warp(s_count))
+        warps = min(_WARPS, -(-n_warps // _SMS), _SMEM // per_warp)
+        words = max(1, (1 << (deg - 1).bit_length()).bit_length() - 1)
+        return ViterbiPlan("warp", warps, _WARP_TILE, 0, warps * per_warp,
+                           n_warps * t_len * words * 4)
+    if route != "block":
+        raise ValueError(f"no Viterbi route {route!r}")
     fixed = (2 * s_count + 32 + 3 * s_count * deg + 1) * 4
-    return max(0, min(t_len, (_SMEM - fixed) // s_count))
+    avail = _SMEM - fixed - 16
+    steps = min(_BLOCK_STEPS, t_len, avail // (8 * o))
+    tb_steps = min(t_len, avail // s_count)
+    if s_count > MAX_STATES or deg > 127 or steps < 1 or tb_steps < 1:
+        raise ValueError(f"viterbi_fwd takes at most {MAX_STATES} states and "
+                         f"tables that fit 48 KB of shared memory (S="
+                         f"{s_count}, in-degree {deg}, O={o})")
+    region = -(-max(8 * o * steps, tb_steps * s_count) // 16) * 16
+    return ViterbiPlan("block", 1, steps, tb_steps, region + fixed,
+                       b * t_len * s_count)
 
 
-def _viterbi_launch(metrics, tab, start_state, end_state):
+def _viterbi_launch(metrics, tab, start_state, end_state, route):
     b, t_len, o = metrics.shape
     s_count, deg = tab.ps.shape
     out = torch.empty((b, t_len), dtype=torch.int32, device=metrics.device)
     if b == 0 or t_len == 0:
         return out
-    tile = viterbi_tile_steps(s_count, deg, t_len)
-    if s_count > MAX_STATES or deg > 127 or tile < 1:
-        raise ValueError(f"viterbi_fwd takes at most {MAX_STATES} states and "
-                         f"tables that fit 48 KB of shared memory (S="
-                         f"{s_count}, in-degree {deg})")
-    choices = torch.empty((b, t_len, s_count), dtype=torch.int8,
-                          device=metrics.device)
+    plan = viterbi_plan(s_count, deg, o, b, t_len, route, tab.complete)
+    code = 1 if plan.route == "warp" else 0
     lib = _library()
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8,
+                          device=metrics.device)
     _launch(metrics, "viterbi_fwd", lib.viterbi_fwd,
             (metrics.data_ptr(), tab.ps.data_ptr(), tab.pi.data_ptr(),
              tab.eo.data_ptr(), b, t_len, o, s_count, deg, int(start_state),
-             int(end_state), tile, choices.data_ptr(), out.data_ptr()),
+             int(end_state), code, plan.steps, plan.tb_steps, plan.warps,
+             scratch.data_ptr(), out.data_ptr()),
             lib.trellis_error_string)
     return out
 
 
 def viterbi_fwd(metrics: torch.Tensor, tab: TrellisTables,
-                start_state: int = 0, end_state: int = -1) -> torch.Tensor:
+                start_state: int = 0, end_state: int = -1,
+                _route=None) -> torch.Tensor:
     """Viterbi over each row of ``metrics`` (B, T, O) float32: the kernel on
     a CUDA tensor, :func:`viterbi_ref` on a CPU one.  Returns (B, T)
-    int32."""
+    int32.  ``_route`` forces ``"warp"`` or ``"block"`` on the card, for
+    holding and timing both routes side by side."""
     if (metrics.dtype != torch.float32 or metrics.ndim != 3
             or metrics.shape[2] != tab.O):
         raise TypeError(f"expected (B, T, {tab.O}) float32 metrics, got "
@@ -193,7 +284,8 @@ def viterbi_fwd(metrics: torch.Tensor, tab: TrellisTables,
     if tab.ps.device != metrics.device:
         raise ValueError("the FSM tables lie on another device than the "
                          "metrics")
-    return _viterbi_launch(metrics.contiguous(), tab, start_state, end_state)
+    return _viterbi_launch(metrics.contiguous(), tab, start_state, end_state,
+                           _route)
 
 
 def dfe_feedback(ff: torch.Tensor, wfb: torch.Tensor, ring: torch.Tensor):

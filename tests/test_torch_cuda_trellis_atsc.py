@@ -2,11 +2,14 @@
 
 ``viterbi_fwd`` is held ``torch.equal`` to its plain twin (every step is one
 float32 add, compare or subtract in the twin's order) on FSMs of 4, 8, 64
-and 256 states, with fixed and free start and end states; the 12-phase ATSC
-decode on the card equals the CPU's.  ``dfe_feedback_fwd`` sums its dot in
-another order than ``torch.dot``: decisions equal to the twin's, outputs
-within 1e-4.  Launches are counted, and recorded at capture and counted at
-each replay under ``run(device_loop=True)``.  The chunked FPLL and the bit
+and 256 states and one with missing edges, on both routes where the warp
+route takes the FSM (row counts and lengths that fill no whole warp or tile
+included), with fixed and free start and end states and on ties; the 12-phase ATSC decode on the card equals the CPU's.
+``dfe_feedback_fwd`` sums in another order than ``torch.dot``: decisions
+and final ring equal to the twin's, outputs within 1e-4, from one symbol to
+more than a multiple of 32.  Each kernel replays from a CUDA graph.
+Launches are counted, and recorded at capture and counted at each replay
+under ``run(device_loop=True)``.  The chunked FPLL and the bit
 timing loop replay one step from a CUDA graph: their outputs equal the same
 steps run eagerly, and the bit timing loop's decisions (and symbols) equal
 the CPU's; an equalizer that loads taps after its training sweep was
@@ -45,13 +48,38 @@ def dev():
 
 FSMS = {"fsm4": FSM4, "atsc": atsc.atsc_trellis_fsm(),
         "ccsds": FSM.from_convolutional(1, 2, [[0o117, 0o155]]),
-        "isi256": FSM.from_isi(4, 5)}
+        "isi256": FSM.from_isi(4, 5),
+        # in-degrees 3 and 1: missing edges, which take the block route
+        "gappy": FSM(2, 2, 2, NS=[0, 1, 0, 0], OS=[0, 1, 0, 1]),
+        # one state (32 rows a warp); three (a pad lane in each row of 4)
+        "one": FSM(2, 1, 2, NS=[0, 0], OS=[0, 1]),
+        "three": FSM(2, 3, 2, NS=[1, 2, 2, 0, 0, 1], OS=[0, 1, 1, 0, 0, 1])}
 
 
-@pytest.mark.parametrize("name,b,t", [("fsm4", 64, 512), ("atsc", 12, 3000),
-                                      ("ccsds", 8, 700), ("isi256", 3, 400)])
+VITERBI_CASES = [("fsm4", 64, 512), ("atsc", 12, 3000), ("ccsds", 8, 700),
+                 ("isi256", 3, 400),
+                 ("fsm4", 13, 1000),    # rows no multiple of a warp's 8
+                 ("atsc", 13, 77),      # nor of its 4; T no multiple of 32
+                 ("gappy", 9, 500),
+                 ("fsm4", 5, 1),        # one step
+                 ("one", 40, 100), ("three", 11, 300)]
+
+
+def routes(name):
+    """The routes an FSM takes: both where the warp route takes it (S <= 32
+    and no missing edge), the block route else."""
+    f = FSMS[name]
+    complete = bool((f.PS >= 0).all())
+    if ct.viterbi_route(f.S, f.PS.shape[1], f.O, complete) == "warp":
+        return ("warp", "block")
+    return ("block",)
+
+
+@pytest.mark.parametrize("name,b,t,route", [
+    (name, b, t, route) for name, b, t in VITERBI_CASES
+    for route in routes(name)])
 @pytest.mark.parametrize("st,en", [(0, -1), (-1, -1), (0, 0)])
-def test_viterbi_kernel_equals_twin(dev, name, b, t, st, en):
+def test_viterbi_kernel_equals_twin(dev, name, b, t, route, st, en):
     fsm = FSMS[name]
     m = torch.from_numpy(np.random.RandomState(b + t).rand(b, t, fsm.O)
                          .astype(np.float32)).to(dev)
@@ -59,22 +87,73 @@ def test_viterbi_kernel_equals_twin(dev, name, b, t, st, en):
     from grtpu_torch.ops._build import library
 
     deg = fsm.PS.shape[1]
-    tile = ct.viterbi_tile_steps(fsm.S, deg, t)
-    assert library().viterbi_smem(fsm.S, deg, tile) <= 48 * 1024
+    plan = ct.viterbi_plan(fsm.S, deg, fsm.O, b, t, route)
+    code = int(route == "warp")
+    assert library().viterbi_smem(code, fsm.S, deg, fsm.O, plan.steps,
+                                  plan.tb_steps,
+                                  plan.warps) == plan.smem <= 48 * 1024
+    assert library().viterbi_scratch_bytes(code, b, t, fsm.S,
+                                           deg) == plan.scratch
     before = cuda_fir.launches["viterbi_fwd"]
-    got = ct.viterbi_fwd(m, tab, st, en)
+    got = ct.viterbi_fwd(m, tab, st, en, _route=route)
     torch.cuda.synchronize()
     assert cuda_fir.launches["viterbi_fwd"] == before + 1
     assert torch.equal(got, ct.viterbi_ref(m, tab, st, en))
 
 
-def test_viterbi_ties_take_the_first_index(dev):
+@pytest.mark.parametrize("route", ["warp", "block"])
+def test_viterbi_ties_take_the_first_index(dev, route):
     """Integer metrics tie constantly: the first candidate wins on the card
-    as in the twin (and in grtpu's argmax)."""
+    as in the twin (and in grtpu's argmax), on both routes."""
     m = torch.from_numpy(np.random.RandomState(3).randint(0, 3, (16, 600, 4))
                          .astype(np.float32)).to(dev)
     tab = ct.tables(FSM4, dev)
-    assert torch.equal(ct.viterbi_fwd(m, tab), ct.viterbi_ref(m, tab))
+    assert torch.equal(ct.viterbi_fwd(m, tab, _route=route),
+                       ct.viterbi_ref(m, tab))
+
+
+@pytest.mark.parametrize("kernel", ["viterbi_fwd", "dfe_feedback_fwd"])
+def test_kernel_replayed_from_a_cuda_graph(dev, kernel):
+    """Each kernel captured into a CUDA graph (after a warm-up call) and
+    replayed on new inputs copied into the captured ones: the replay equals
+    an eager call on those inputs."""
+    r = np.random.RandomState(11)
+    if kernel == "viterbi_fwd":
+        fsm = FSMS["atsc"]
+        tab = ct.tables(fsm, dev)
+        shape = (12, 2000, fsm.O)
+        x = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(dev)
+
+        def call():
+            return (ct.viterbi_fwd(x, tab),)
+    else:
+        wfb = torch.from_numpy((r.randn(192) * 0.02).astype(np.float32)).to(dev)
+        ring = torch.from_numpy(r.choice(np.arange(-7.0, 8.0, 2.0), 192)
+                                .astype(np.float32)).to(dev)
+        shape = (5000,)
+        x = torch.empty(shape, device=dev)
+
+        def call():
+            return ct.dfe_feedback(x, wfb, ring)
+
+    def fresh():
+        if kernel == "viterbi_fwd":
+            return torch.from_numpy(r.rand(*shape).astype(np.float32))
+        return torch.from_numpy((r.choice(np.arange(-7, 8, 2), shape[0])
+                                 + r.randn(shape[0]) * 0.3).astype(np.float32))
+
+    x.copy_(fresh().to(dev))
+    call()                                   # warm-up: build and load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    for _ in range(2):
+        x.copy_(fresh().to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, call()):
+            assert torch.equal(got, want)
 
 
 def test_atsc_trellis_decode_card_equals_cpu(dev):
@@ -88,9 +167,9 @@ def test_atsc_trellis_decode_card_equals_cpu(dev):
 
 
 @pytest.mark.parametrize("nfb", [32, 192, 256])
-def test_dfe_kernel_against_twin(dev, nfb):
-    r = np.random.RandomState(nfb)
-    n = 4096
+@pytest.mark.parametrize("n", [1, 100, 4096, 4097])
+def test_dfe_kernel_against_twin(dev, n, nfb):
+    r = np.random.RandomState(nfb + n)
     ff = torch.from_numpy((r.choice(np.arange(-7, 8, 2), n)
                            + r.randn(n) * 0.3).astype(np.float32)).to(dev)
     wfb = torch.from_numpy((r.randn(nfb) * 0.02).astype(np.float32)).to(dev)
