@@ -533,21 +533,12 @@ size_t viterbi_smem(int route, int S, int deg, int O, int steps, int tb_steps,
          (2 * S + 32 + 3 * S * deg + 1) * sizeof(float);
 }
 
-// Bytes of the decision scratch a call needs: per warp, dec_words 32-bit
-// words a step (warp route); one int8 a state and step (block route).
-size_t viterbi_scratch_bytes(int route, int B, int T, int S, int deg) {
-  if (route == kWarp) {
-    const int rows = 32 >> log_sp(S);
-    const size_t warps = (B + rows - 1) / rows;
-    return warps * T * dec_words(deg_bucket(deg)) * sizeof(uint32_t);
-  }
-  return static_cast<size_t>(B) * T * S;
-}
-
 // route: 1 warp (S <= 32, deg <= 8; `warps` warps a block), 0 block (one
 // block a row; `steps` metric steps and `tb_steps` traceback steps a
-// tile).  The wrapper sizes both routes within the 48 KB a block takes
-// without an opt-in, so nothing is set up before a CUDA-graph capture.
+// tile).  scratch holds the decisions: per warp, dec_words 32-bit words a
+// step (warp route); one int8 a state and step (block route).  The
+// wrapper sizes both routes within the 48 KB a block takes without an
+// opt-in, so nothing is set up before a CUDA-graph capture.
 int viterbi_fwd(const float* metrics, const int* ps, const int* pi,
                 const int* eo, int B, int T, int O, int S, int deg,
                 int start_state, int end_state, int route, int steps,

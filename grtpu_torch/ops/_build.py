@@ -110,7 +110,6 @@ def library() -> SimpleNamespace:
         viterbi: {
             "viterbi_fwd": ([p] * 4 + [i] * 11 + [p, p, p], i),
             "viterbi_smem": ([i] * 7, i64),
-            "viterbi_scratch_bytes": ([i] * 5, i64),
             "trellis_error_string": ([i], ctypes.c_char_p),
         },
         dfe: {

@@ -42,7 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from grtpu_torch.ops.cuda_fir import _raw_stream, count_launch
+from grtpu_torch.ops.cuda_fir import (_H100_SMS, _raw_stream, _sm_count,
+                                      count_launch)
 
 NEG = -1e9
 MAX_STATES = 1024        # block route: one thread a state in one block
@@ -50,7 +51,6 @@ WARP_MAX_STATES = 32     # warp route: one lane a state
 WARP_MAX_DEG = 8         # warp route: a lane's tables in 4 * 8 registers
 _WARP_TILE = 32          # warp route: steps of a metric tile
 _WARPS = 4               # warp route: most warps a block
-_SMS = 132               # H100 SXM: SMs, over which the warps spread first
 _BLOCK_STEPS = 32        # block route: most steps of a metric tile
 _SMEM = 48 * 1024        # a block's shared memory without an opt-in
 
@@ -60,12 +60,13 @@ class TrellisTables(NamedTuple):
     int32 with -1 for a missing edge, ``eo`` (S, deg) int32, the output
     symbol of each edge (``OS[max(PS, 0), max(PI, 0)]``), ``O``, the
     number of output symbols (the metrics' last axis), and ``complete``:
-    no edge is missing."""
+    no edge is missing (only then may a call take the warp route, so it is
+    given, never assumed)."""
     ps: torch.Tensor
     pi: torch.Tensor
     eo: torch.Tensor
     O: int
-    complete: bool = True
+    complete: bool
 
 
 def tables(fsm, device) -> TrellisTables:
@@ -172,9 +173,10 @@ def _rows_per_warp(s_count: int) -> int:
 
 
 def _warp_bytes(s_count: int, o: int) -> int:
-    """Shared memory of one warp on the warp route: a 32-step metric tile
-    of its rows, each output symbol's run of steps padded to 33 floats (so
-    that a step's reads fall in distinct banks), double-buffered."""
+    """Shared memory of one warp on the warp route (trellis_viterbi.cu's
+    ``viterbi_smem``): a 32-step metric tile of its rows, each output
+    symbol's run of steps padded to 33 floats (so that a step's reads fall
+    in distinct banks), double-buffered."""
     return 2 * _rows_per_warp(s_count) * (_WARP_TILE + 1) * o * 4
 
 
@@ -210,9 +212,10 @@ class ViterbiPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def viterbi_plan(s_count: int, deg: int, o: int, b: int, t_len: int,
-                 route=None, complete: bool = True) -> ViterbiPlan:
+                 route=None, complete: bool = True,
+                 sms: int = _H100_SMS) -> ViterbiPlan:
     """The launch of a (b, t_len, o) call on ``route`` (by default
-    :func:`viterbi_route`'s)."""
+    :func:`viterbi_route`'s), on a card of ``sms`` SMs."""
     auto = viterbi_route(s_count, deg, o, complete)
     route = route or auto
     if route == "warp":
@@ -223,7 +226,7 @@ def viterbi_plan(s_count: int, deg: int, o: int, b: int, t_len: int,
                              f" in-degree {deg}, O={o}, complete={complete})")
         per_warp = _warp_bytes(s_count, o)
         n_warps = -(-b // _rows_per_warp(s_count))
-        warps = min(_WARPS, -(-n_warps // _SMS), _SMEM // per_warp)
+        warps = min(_WARPS, -(-n_warps // sms), _SMEM // per_warp)
         words = max(1, (1 << (deg - 1).bit_length()).bit_length() - 1)
         return ViterbiPlan("warp", warps, _WARP_TILE, 0, warps * per_warp,
                            n_warps * t_len * words * 4)
@@ -248,7 +251,8 @@ def _viterbi_launch(metrics, tab, start_state, end_state, route):
     out = torch.empty((b, t_len), dtype=torch.int32, device=metrics.device)
     if b == 0 or t_len == 0:
         return out
-    plan = viterbi_plan(s_count, deg, o, b, t_len, route, tab.complete)
+    plan = viterbi_plan(s_count, deg, o, b, t_len, route, tab.complete,
+                        _sm_count(metrics.device.index))
     code = 1 if plan.route == "warp" else 0
     lib = _library()
     scratch = torch.empty(plan.scratch, dtype=torch.uint8,
