@@ -10,37 +10,54 @@ What changes in the port:
 * Streams are ``torch.Tensor`` s on an explicit ``torch.device``; the
   executor state is a dict of tensors, and each time-block runs eagerly
   (there is no jit).
-* The Pallas TPU kernel ``grtpu.ops.pallas_fir._cascade_kernel`` becomes two
-  CUDA C++ kernels written for Hopper (``grtpu_torch/csrc/fir_tile.cu``),
-  built with ``nvcc`` at first use and reached through
-  :mod:`grtpu_torch.ops.cuda_fir`.  On a CPU tensor the same functions run
-  their plain PyTorch twins.
+* The Pallas TPU kernel ``grtpu.ops.pallas_fir._cascade_kernel`` becomes
+  hand-written CUDA C++ kernels for Hopper (``grtpu_torch/csrc/fir_tile.cu``:
+  ``fir_tile_fwd``, ``fir_cascade_fwd``, ``fir_toeplitz_fwd``,
+  ``fir_cascade_mma_fwd``; ``csrc/fir_decim.cu``: ``fir_decim_fwd``,
+  ``fir_decim_mma_fwd``), built with ``nvcc`` at first use and reached
+  through :mod:`grtpu_torch.ops.cuda_fir`.  Two long ``lax.scan``
+  recursions of the trellis slice run as hand kernels too
+  (``csrc/trellis_viterbi.cu``, ``csrc/atsc_dfe.cu`` behind
+  :mod:`grtpu_torch.ops.cuda_trellis`).  On a CPU tensor the same functions
+  run their plain PyTorch twins.
+* ``run(device_loop=True)`` and the long per-step loops replay their steps
+  from CUDA graphs (:mod:`grtpu_torch.runtime.step_graph`).
 
 This package imports neither ``jax`` nor ``grtpu``.
 
-Layout (the slices ported so far: the frequency-translating WBFM receiver
-and the rest of the FM family, the polyphase filterbank, DMR 4FSK):
-    grtpu_torch.runtime -- Block protocol, graph builder, time-block executor
-                           (fixed rate and the variable-rate FIFO)
+Layout (the slices ported so far, PR 1 to PR 11: the FIR substrate and its
+kernels; WBFM and the FM family; the polyphase filterbank; DMR 4FSK; the
+executor's run modes; the digital modem stack; messages, tags, packets and
+OFDM; trellis, FEC and ATSC; the rest of the block library, the vocoders
+and the voice, pager and NOAA models):
+    grtpu_torch.runtime -- Block protocol and StreamSpec, graph builder,
+                           time-block executor (fixed rate, the
+                           variable-rate FIFO, stream tags, device_loop),
+                           step graphs, PMTs, message queues, TopBlock
     grtpu_torch.ops     -- FIR substrate (decimating, interpolating,
                            filterbank, frequency-translating), FFT filter,
                            rotator/NCO/demod/IIR/control-loop helpers, the
-                           polyphase filterbank ops (channelizer,
-                           synthesizer, arbitrary resampler), the MMSE
-                           interpolator bank, CUDA kernels
-    grtpu_torch.blocks  -- analog, convert, filter, gengen, pfb and stream
-                           blocks
-    grtpu_torch.digital -- constellations, Costas and M&M loops, the 4FSK /
-                           GMSK / PSK modems, their graph blocks
-    grtpu_torch.models  -- the FM family (WfmRcv, WfmRcvPll, NbfmRx/Tx, WfmTx,
-                           AmDemod, FmDemod, pre/de-emphasis) and the DMR
-                           burst layer (DmrReceiver, DmrTransmitter)
+                           polyphase filterbank ops, the MMSE interpolator
+                           bank, counter-based noise, the CUDA kernels
+    grtpu_torch.blocks  -- analog, convert, filter, gengen, pfb, stream,
+                           fftblk, misc, oscope and selftest blocks
+    grtpu_torch.digital -- constellations, loops, the modems (4FSK, GMSK,
+                           PSK, generic, CPM), LFSR/BERT, equalizers, the
+                           packet layer, correlators, OFDM, the tunnel
+    grtpu_torch.trellis -- FSMs, interleavers, Viterbi / SISO / turbo
+    grtpu_torch.fec     -- Reed-Solomon and the K=7 convolutional code
+    grtpu_torch.vocoder -- G.711, G.721 / G.723, CVSD, GSM 06.10, Codec2
+    grtpu_torch.models  -- the FM family, DMR, the channel model, ATSC
+                           8-VSB, digital voice (GSM over GMSK), the FLEX
+                           pager bit layer, NOAA HRPT
     grtpu_torch.utils   -- firdes and optfir tap design, the Parks-McClellan
-                           engine, engineering notation (numpy)
+                           engine, engineering notation, the default
+                           device, test helpers, the idle-share profiler
 """
 
 __version__ = "0.1.0"
 
-from grtpu_torch.runtime.block import Block, Port  # noqa: F401
+from grtpu_torch.runtime.block import Block, Port, StreamSpec  # noqa: F401
 from grtpu_torch.runtime.graph import Graph, HierBlock  # noqa: F401
 from grtpu_torch.runtime.executor import StreamExecutor  # noqa: F401
+from grtpu_torch.runtime.top_block import TopBlock  # noqa: F401

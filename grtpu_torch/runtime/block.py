@@ -92,6 +92,23 @@ def port_c(vlen: int = 1) -> Port:
     return Port(torch.complex64, vlen)
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """Full signature of a block side: a tuple of Ports.
+
+    Analog of gr_io_signature (min/max stream counts collapse to an exact
+    tuple; variable-arity blocks expose factory parameters instead).
+    """
+
+    ports: Tuple[Port, ...]
+
+    def __len__(self):
+        return len(self.ports)
+
+    def __getitem__(self, i):
+        return self.ports[i]
+
+
 class Block:
     """Base class for stream blocks.
 
