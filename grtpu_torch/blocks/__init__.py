@@ -1,1 +1,1 @@
-from grtpu_torch.blocks import analog, convert, filter, gengen, pfb, stream
+from grtpu_torch.blocks import analog, convert, fftblk, filter, gengen, misc, oscope, pfb, stream

@@ -160,6 +160,10 @@ class Block:
     # calls ``apply(state, n, device=...)``, since no state tensor tells the
     # block where to produce.
     source_takes_device: bool = False
+    # True for a block whose work runs on the host (the Codec2 blocks' NumPy
+    # codec): it reads its chunk back from the device, so a CUDA graph
+    # cannot hold it, and ``run(device_loop=True)`` refuses its graph.
+    host_only: bool = False
 
     _instance_counter = [0]
     # Bumped whenever ANY block's parameters change (see touch());

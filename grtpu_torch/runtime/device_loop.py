@@ -112,6 +112,12 @@ class DeviceLoop:
     """The static buffers and the captured pieces of one executor's step."""
 
     def __init__(self, ex):
+        for b in ex.order:
+            if b.host_only:
+                raise ValueError(
+                    f"device_loop: {b.name} ({type(b).__name__}) runs its "
+                    "work on the host, which a captured step cannot do; "
+                    "run this graph with run() or step()")
         self.ex = ex
         self.cuda = ex.device.type == "cuda"
         self.device = (torch.device("cuda", torch.cuda.current_device())

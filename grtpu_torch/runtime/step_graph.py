@@ -75,3 +75,74 @@ class StepGraph:
                 gc.enable()
         self.graph, self.record = graph, record
         self.capture_seconds = time.perf_counter() - t0
+
+
+# Steps a StepGraph replay runs in step_scan.  Chosen on the card by
+# chip_smoke phase 12 (G.721 bank 64 x 2^14 at U = 16, 32 and 64).
+UNROLL = 32
+
+
+def capturing(device) -> bool:
+    """True while a CUDA graph capture is running on ``device``'s stream."""
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _store(dst, vals):
+    """Copy ``vals`` into the static buffers ``dst``; a value that shares
+    memory with a destination is cloned before the first copy."""
+    ptrs = {d.untyped_storage().data_ptr() for d in dst}
+    staged = [v.clone() if v.untyped_storage().data_ptr() in ptrs else v
+              for v in vals]
+    for d, v in zip(dst, staged):
+        if v is not d:
+            d.copy_(v)
+
+
+def step_scan(step, state, xs: torch.Tensor, out: torch.Tensor,
+              unroll: int = None):
+    """``lax.scan`` over axis 0 of ``xs``: ``state, out[t] = step(state,
+    xs[t])`` for every t, in order; returns the final state (a tuple).
+
+    ``step`` takes and returns a tuple of tensors and makes one output
+    item a step; ``out`` is preallocated with ``xs.shape[0]`` rows.  On a
+    CUDA device, outside a capture, each ``unroll`` steps are one
+    :class:`StepGraph` call over static buffers (the whole input and
+    output, the state, a step counter on the device), so the loop costs the
+    host one replay per ``unroll`` steps; the last ``T % unroll`` steps run
+    eagerly.  Inside a capture (a block's ``apply`` under
+    ``run(device_loop=True)``), or on the CPU, the steps run one after the
+    other and the capture holds them all."""
+    state = tuple(state)
+    n = xs.shape[0]
+    u = UNROLL if unroll is None else int(unroll)
+    done = 0
+    if xs.device.type == "cuda" and not capturing(xs.device) and n >= 2 * u:
+        st = [s.clone() for s in state]
+        ctr = torch.zeros(1, dtype=torch.int64, device=xs.device)
+        ar = torch.arange(u, device=xs.device)
+
+        def graph_step():
+            idx = ctr + ar
+            xb = xs.index_select(0, idx)
+            s = tuple(st)
+            ys = []
+            for k in range(u):
+                s, y = step(s, xb[k])
+                ys.append(y)
+            out.index_copy_(0, idx, torch.stack(ys))
+            _store(st, s)
+            ctr.add_(u)
+
+        graph = StepGraph(graph_step, xs.device)
+        done = n // u * u
+        for _ in range(n // u):
+            graph()
+        state = tuple(st)
+    if done < n:
+        ys = []
+        for t in range(done, n):
+            state, y = step(state, xs[t])
+            ys.append(y)
+        out[done:] = torch.stack(ys)
+    return state
