@@ -80,6 +80,9 @@ class StepGraph:
 # Steps a StepGraph replay runs in step_scan.  Chosen on the card by
 # chip_smoke phase 12 (G.721 bank 64 x 2^14 at U = 16, 32 and 64).
 UNROLL = 32
+# What step_scan's graphs cost, summed over calls: read and zeroed by
+# chip_smoke around a phase, as cuda_fir.launches is.
+scan_stats = {"graphs": 0, "replays": 0, "capture_seconds": 0.0}
 
 
 def capturing(device) -> bool:
@@ -138,6 +141,9 @@ def step_scan(step, state, xs: torch.Tensor, out: torch.Tensor,
         done = n // u * u
         for _ in range(n // u):
             graph()
+        scan_stats["graphs"] += 1
+        scan_stats["replays"] += n // u - 1
+        scan_stats["capture_seconds"] += graph.capture_seconds
         state = tuple(st)
     if done < n:
         ys = []
