@@ -353,10 +353,12 @@ class CtcssSquelch(Block):
         open_ = (p_tone / (sums[2] + 1e-12)) > self.level
         ndone = (count + n) // nb                            # blocks closed
         blk = pos // nb
-        last = torch.where(ndone > 0,
-                           open_[(ndone - 1).clamp(min=0)], gate)
+        # a 0-d index would be read on the host: index with one element
+        prev = (ndone - 1).clamp(min=0).reshape(1)
+        last = torch.where(ndone > 0, open_.index_select(0, prev)[0], gate)
         g = torch.where(blk < ndone, open_[blk.clamp(max=kmax - 1)], last)
-        new_acc = sums[:, ndone]             # ndone <= kmax - 1
+        # ndone <= kmax - 1
+        new_acc = sums.index_select(1, ndone.reshape(1))[:, 0]
         return ((new_acc, (count + n) % nb, last),
                 x * g.to(torch.float32))
 

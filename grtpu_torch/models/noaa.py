@@ -215,8 +215,10 @@ class HrptDeframer(Block):
             done = synced & (take == rem)           # the frame's last bit
             keep = synced & ~done                   # still in the frame
             cbn = tb % 10
-            word = torch.where(keep, val[nc.clamp(max=nslot - 1)]
-                               >> (10 - cbn), torch.where(done, 0, word))
+            # a 0-d index would be read on the host: index with one element
+            partial = val.index_select(0, nc.clamp(max=nslot - 1).reshape(1))
+            word = torch.where(keep, partial[0] >> (10 - cbn),
+                               torch.where(done, 0, word))
             bitc = torch.where(keep, 10 - cbn, torch.where(done, 10, bitc))
             wordc = torch.where(synced, wordc - nc, wordc)
             mid_kept = (n - p0) % 2 == 0
@@ -243,7 +245,7 @@ class HrptDeframer(Block):
                 torch.arange(n + 1, device=dev) < nproc)
             hit = match.any()
             qh = torch.argmax(match.to(torch.int8))
-            h = where_q[qh]
+            h = where_q.index_select(0, qh.reshape(1))[0]
             last60 = (pb[nproc + torch.arange(60, device=dev)] * pow60).sum()
             y.index_copy_(0, torch.where(hit, off + torch.arange(
                 6, device=dev), dump), syncw)

@@ -108,19 +108,20 @@ def step_scan(step, state, xs: torch.Tensor, out: torch.Tensor,
     xs[t])`` for every t, in order; returns the final state (a tuple).
 
     ``step`` takes and returns a tuple of tensors and makes one output
-    item a step; ``out`` is preallocated with ``xs.shape[0]`` rows.  On a
-    CUDA device, outside a capture, each ``unroll`` steps are one
-    :class:`StepGraph` call over static buffers (the whole input and
-    output, the state, a step counter on the device), so the loop costs the
-    host one replay per ``unroll`` steps; the last ``T % unroll`` steps run
-    eagerly.  Inside a capture (a block's ``apply`` under
-    ``run(device_loop=True)``), or on the CPU, the steps run one after the
-    other and the capture holds them all."""
+    item a step; ``out`` is preallocated with ``xs.shape[0]`` rows.
+    Outside a capture, each ``unroll`` steps (``UNROLL`` unless given) are
+    one :class:`StepGraph` call over static buffers (the whole input and
+    output, the state, a step counter on the device): on a CUDA device a
+    replay, so the loop costs the host one replay per ``unroll`` steps; on
+    the CPU the same buffers with each call run.  The last ``T % unroll``
+    steps run one after the other.  Inside a capture (a block's ``apply``
+    under ``run(device_loop=True)``) every step runs one after the other
+    and the capture holds them all."""
     state = tuple(state)
     n = xs.shape[0]
     u = UNROLL if unroll is None else int(unroll)
     done = 0
-    if xs.device.type == "cuda" and not capturing(xs.device) and n >= 2 * u:
+    if not capturing(xs.device) and n >= 2 * u:
         st = [s.clone() for s in state]
         ctr = torch.zeros(1, dtype=torch.int64, device=xs.device)
         ar = torch.arange(u, device=xs.device)
@@ -141,9 +142,10 @@ def step_scan(step, state, xs: torch.Tensor, out: torch.Tensor,
         done = n // u * u
         for _ in range(n // u):
             graph()
-        scan_stats["graphs"] += 1
-        scan_stats["replays"] += n // u - 1
-        scan_stats["capture_seconds"] += graph.capture_seconds
+        if graph.graph is not None:
+            scan_stats["graphs"] += 1
+            scan_stats["replays"] += n // u - 1
+            scan_stats["capture_seconds"] += graph.capture_seconds
         state = tuple(st)
     if done < n:
         ys = []

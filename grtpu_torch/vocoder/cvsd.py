@@ -84,17 +84,17 @@ def _adapt_step(p, stepsize, runner, loop_counter):
                        torch.where(run, grown, decayed), stepsize)
 
 
-def _scan(step, state, xs, out_dtype, unroll):
+def _scan(step, state, xs, out_dtype):
     lead = tuple(state[0].shape)
     nb = int(np.prod(lead)) if lead else 1
     flat = tuple(s.reshape(nb) for s in state)
     seq = xs.reshape(nb, xs.shape[-1]).t().contiguous()
     out = torch.empty(seq.shape, dtype=out_dtype, device=xs.device)
-    fin = step_scan(step, flat, seq, out, unroll)
+    fin = step_scan(step, flat, seq, out)
     return tuple(s.reshape(lead) for s in fin), out.t().reshape(xs.shape)
 
 
-def cvsd_encode_bits(p: _CvsdParams, state, pcm, unroll: int = None):
+def cvsd_encode_bits(p: _CvsdParams, state, pcm):
     """int16 samples (..., T) -> one bit per sample (uint8 0/1)."""
 
     def step(carry, x):
@@ -108,10 +108,10 @@ def cvsd_encode_bits(p: _CvsdParams, state, pcm, unroll: int = None):
                                    loop_counter + 1, loop_counter)
         return (accum, stepsize, runner, loop_counter), bit.to(torch.uint8)
 
-    return _scan(step, state, pcm, torch.uint8, unroll)
+    return _scan(step, state, pcm, torch.uint8)
 
 
-def cvsd_decode_bits(p: _CvsdParams, state, bit_values, unroll: int = None):
+def cvsd_decode_bits(p: _CvsdParams, state, bit_values):
     """Mask-valued bits (byte & 2^(7-k), as the reference decoder sees them)
     -> int16 samples (the post-update accumulator)."""
 
@@ -126,7 +126,7 @@ def cvsd_decode_bits(p: _CvsdParams, state, bit_values, unroll: int = None):
         return ((accum, stepsize, runner, loop_counter),
                 accum.to(torch.int16))
 
-    return _scan(step, state, bit_values, torch.int16, unroll)
+    return _scan(step, state, bit_values, torch.int16)
 
 
 class CvsdEncode(Block):

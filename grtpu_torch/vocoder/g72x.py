@@ -317,7 +317,7 @@ def _decode_step(c: _Consts, tabs, st: G72xState, code):
     return st, _s16(sr << 2).to(torch.int16)
 
 
-def _run(step_fn, variant, state: G72xState, xs, out_dtype, unroll):
+def _run(step_fn, variant, state: G72xState, xs, out_dtype):
     """Scan ``step_fn`` over the last axis of ``xs`` (..., T), whose leading
     axes are the state's channel axes."""
     c = _CONSTS[variant]
@@ -333,21 +333,21 @@ def _run(step_fn, variant, state: G72xState, xs, out_dtype, unroll):
         s2, y = step_fn(c, tabs, G72xState(*s), x)
         return tuple(s2), y
 
-    fin = step_scan(step, flat, seq, out, unroll)
+    fin = step_scan(step, flat, seq, out)
     new = G72xState(*[leaf.reshape(lead + _LEAF.get(k, ()))
                       for k, leaf in zip(G72xState._fields, fin)])
     return new, out.t().reshape(xs.shape)
 
 
-def g72x_encode(variant: str, state: G72xState, pcm, unroll: int = None):
+def g72x_encode(variant: str, state: G72xState, pcm):
     """Encode int16 PCM (..., T) -> one ADPCM code byte per sample
     (bit-exact); the leading axes are the state's channels."""
-    return _run(_encode_step, variant, state, pcm, torch.uint8, unroll)
+    return _run(_encode_step, variant, state, pcm, torch.uint8)
 
 
-def g72x_decode(variant: str, state: G72xState, codes, unroll: int = None):
+def g72x_decode(variant: str, state: G72xState, codes):
     """Decode ADPCM code bytes (..., T) -> int16 PCM (bit-exact)."""
-    return _run(_decode_step, variant, state, codes, torch.int16, unroll)
+    return _run(_decode_step, variant, state, codes, torch.int16)
 
 
 class _G72xBlock(Block):

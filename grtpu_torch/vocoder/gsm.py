@@ -562,7 +562,7 @@ def gsm_unpack(frames):
     return (bits.to(torch.float64) @ _k("unpack_w", dev)).to(_I32)
 
 
-def _frames_scan(fn, state, leaves, xs, width, out_dtype, unroll):
+def _frames_scan(fn, state, leaves, xs, width, out_dtype):
     """Run ``fn`` once a frame over a bank: xs (..., n, width_in) with the
     state's channel axes leading; returns (state', out (..., n, width))."""
     lead = tuple(state[leaves[0][0]].shape[:state[leaves[0][0]].dim()
@@ -572,26 +572,26 @@ def _frames_scan(fn, state, leaves, xs, width, out_dtype, unroll):
     nf = xs.shape[-2]
     seq = xs.reshape((nb, nf) + xs.shape[-1:]).transpose(0, 1).contiguous()
     out = torch.empty((nf, nb, width), dtype=out_dtype, device=xs.device)
-    fin = step_scan(fn, flat, seq, out, 1 if unroll is None else unroll)
+    fin = step_scan(fn, flat, seq, out, unroll=1)
     new = {k: v.reshape(lead + shape) for (k, shape), v in zip(leaves, fin)}
     return new, out.transpose(0, 1).reshape(lead + (nf, width))
 
 
-def gsm_fr_encode(state, pcm, unroll: int = None):
+def gsm_fr_encode(state, pcm):
     """int16 PCM (..., n*160) -> (state', uint8 frames (..., n, 33)); the
     leading axes are the state's channels.  One frame of the bank a step
-    (``unroll`` frames a CUDA-graph replay on the card)."""
+    (a CUDA-graph replay on the card)."""
     frames = pcm.to(_I32).reshape(pcm.shape[:-1] + (-1, 160))
     state, params = _frames_scan(_encode_frame, state, _ENC_LEAVES, frames,
-                                 76, _I32, unroll)
+                                 76, _I32)
     return state, gsm_pack(params)
 
 
-def gsm_fr_decode(state, frames, unroll: int = None):
+def gsm_fr_decode(state, frames):
     """uint8 frames (..., n, 33) -> (state', int16 PCM (..., n*160))."""
     params = gsm_unpack(frames)
     state, pcm = _frames_scan(_decode_frame, state, _DEC_LEAVES, params,
-                              160, _I32, unroll)
+                              160, _I32)
     return state, pcm.reshape(pcm.shape[:-2] + (-1,)).to(torch.int16)
 
 

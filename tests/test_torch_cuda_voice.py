@@ -73,11 +73,13 @@ def test_g711_exhaustive(dev, name):
 
 @pytest.mark.parametrize("unroll", [8, 16, 32])
 @pytest.mark.parametrize("variant", ["g721", "g723_24", "g723_40"])
-def test_g72x_bank_equals_the_cpu_and_the_golden(dev, variant, unroll):
+def test_g72x_bank_equals_the_cpu_and_the_golden(dev, variant, unroll,
+                                                 monkeypatch):
+    monkeypatch.setattr(step_graph, "UNROLL", unroll)
     pcm = bank(600)
     st_d, codes_d = g72x.g72x_encode(
         variant, g72x.g72x_init_state(channels=4, device=dev),
-        torch.from_numpy(pcm).to(dev), unroll=unroll)
+        torch.from_numpy(pcm).to(dev))
     st_c, codes_c = g72x.g72x_encode(
         variant, g72x.g72x_init_state(channels=4, device="cpu"),
         torch.from_numpy(pcm))
@@ -86,37 +88,36 @@ def test_g72x_bank_equals_the_cpu_and_the_golden(dev, variant, unroll):
     np.testing.assert_array_equal(codes_d[0].cpu().numpy(),
                                   GOLD[f"{variant}_codes"][:600])
     _, pcm_d = g72x.g72x_decode(
-        variant, g72x.g72x_init_state(channels=4, device=dev), codes_d,
-        unroll=unroll)
+        variant, g72x.g72x_init_state(channels=4, device=dev), codes_d)
     np.testing.assert_array_equal(pcm_d[0].cpu().numpy(),
                                   GOLD[f"{variant}_dec"][:600])
 
 
-def test_step_scan_counts_its_graphs(dev):
+def test_step_scan_counts_its_graphs(dev, monkeypatch):
+    monkeypatch.setattr(step_graph, "UNROLL", 16)
     for k in step_graph.scan_stats:
         step_graph.scan_stats[k] = 0
     g72x.g72x_encode("g721", g72x.g72x_init_state(channels=2, device=dev),
-                     torch.zeros(2, 100, dtype=torch.int16, device=dev),
-                     unroll=16)
+                     torch.zeros(2, 100, dtype=torch.int16, device=dev))
     assert step_graph.scan_stats["graphs"] == 1
     assert step_graph.scan_stats["replays"] == 100 // 16 - 1
 
 
 @pytest.mark.parametrize("unroll", [8, 32])
-def test_cvsd_bank_equals_the_cpu(dev, unroll):
+def test_cvsd_bank_equals_the_cpu(dev, unroll, monkeypatch):
+    monkeypatch.setattr(step_graph, "UNROLL", unroll)
     p = cvsd._CvsdParams()
     pcm = bank(700)
     st_d, bits_d = cvsd.cvsd_encode_bits(
         p, cvsd.cvsd_init_state(p, channels=4, device=dev),
-        torch.from_numpy(pcm).to(dev), unroll=unroll)
+        torch.from_numpy(pcm).to(dev))
     st_c, bits_c = cvsd.cvsd_encode_bits(
         p, cvsd.cvsd_init_state(p, channels=4, device="cpu"),
         torch.from_numpy(pcm))
     assert torch.equal(bits_d.cpu(), bits_c) and tree_equal(st_d, st_c)
     vals = bits_d * 128
     _, dec_d = cvsd.cvsd_decode_bits(
-        p, cvsd.cvsd_init_state(p, channels=4, device=dev), vals,
-        unroll=unroll)
+        p, cvsd.cvsd_init_state(p, channels=4, device=dev), vals)
     _, dec_c = cvsd.cvsd_decode_bits(
         p, cvsd.cvsd_init_state(p, channels=4, device="cpu"), vals.cpu())
     assert torch.equal(dec_d.cpu(), dec_c)

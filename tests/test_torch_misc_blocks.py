@@ -534,3 +534,85 @@ def test_checkers_equal_grtpu_on_corrupted_streams():
     r = rep.report()
     assert r["runlength"] > 2000
     assert r["ntotal"] - 2047 - 30 < r["nright"] < r["ntotal"]
+
+
+# ------------------------------------------------------------ capturable steps
+class NoHostRead:
+    """Fails on any op that reads a tensor's value back to the host (an
+    ``.item()``, ``bool(tensor)``, an index by a 0-d tensor): a CUDA graph
+    capture of the step, as run(device_loop=True) makes, cannot hold one."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func)
+                if "_local_scalar_dense" in name or "is_nonzero" in name \
+                        or name.startswith("aten.item"):
+                    raise AssertionError(f"host read in the step: {name}")
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        return self.mode.__enter__()
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _steps():
+    from grtpu_torch import vocoder
+    from grtpu_torch.models import noaa, pager
+
+    r = np.random.RandomState(1)
+    f = torch.from_numpy(r.randn(2048).astype(np.float32))
+    c = torch.from_numpy((r.randn(2048) + 1j * r.randn(2048)).astype(
+        np.complex64))
+    u = torch.from_numpy(r.randint(0, 2, 2048).astype(np.uint8))
+    s = torch.from_numpy((r.randn(1600) * 3000).astype(np.int16))
+    return [
+        ("CtcssSquelch", tmisc.CtcssSquelch(8000.0, 100.0, 0.005, 1024), [f]),
+        ("DpllBB", tmisc.DpllBB(7.3, 0.2), [u[:300]]),
+        ("IqComp", tmisc.IqComp(0.01), [c[:300]]),
+        ("Threshold", tmisc.Threshold(-0.3, 0.3), [f]),
+        ("StandardSquelch", tmisc.StandardSquelch(8000.0), [f]),
+        ("Cpfsk", tmisc.Cpfsk(0.5, 1.0, 4), [u]),
+        ("ErrorRate", tmisc.ErrorRate("BER", 50), [u, u.flip(0)]),
+        ("ProbeDensity", tmisc.ProbeDensity(0.05), [u]),
+        ("WaveletFF", tmisc.WaveletFF(16, 4), [f.reshape(-1, 16)]),
+        ("FftVcc", tfft.FftVcc(16, True, np.hanning(16), True),
+         [c.reshape(-1, 16)]),
+        ("G721Encode", vocoder.G721Encode(), [s[:200]]),
+        ("G721Decode", vocoder.G721Decode(), [u[:200]]),
+        ("CvsdEncode", vocoder.CvsdEncode(), [s[:256]]),
+        ("CvsdDecode", vocoder.CvsdDecode(), [u[:32]]),
+        ("GsmFrEncode", vocoder.GsmFrEncode(), [s[:320]]),
+        ("GsmFrDecode", vocoder.GsmFrDecode(),
+         [torch.from_numpy(np.tile(np.array([0xD0] + [0] * 32, np.uint8),
+                                   (2, 1)))]),
+        ("HrptPll", noaa.HrptPll(), [c[:300]]),
+        ("HrptDeframer", noaa.HrptDeframer(), [u]),
+        ("PagerSlicer", pager.PagerSlicer(), [f]),
+    ]
+
+
+@pytest.mark.parametrize("idx", range(19))
+def test_block_steps_read_nothing_back(idx):
+    name, blk, xs = _steps()[idx]
+    st = blk.init_state()
+    with NoHostRead():
+        st, _ = blk.apply(st, *xs)
+        blk.apply(st, *xs)          # and again from the carried state
+
+
+def test_tagger_and_source_steps_read_nothing_back():
+    bt = tmisc.BurstTagger(0.5)
+    mag = torch.tensor([0.0, 1, 1, 0, 1, 0], dtype=torch.float32)
+    src = tself.Lfsr32kSource()
+    with NoHostRead():
+        st, _, rec = bt.apply_tagged(bt.init_state(), mag.to(torch.complex64),
+                                     mag)
+        bt.apply_tagged(st, mag.to(torch.complex64), mag)
+        src.apply(src.apply(src.init_state(), 3000)[0], 3000)
+    assert [t.offset for t in bt.tags_from_device(
+        {k: v.numpy() for k, v in rec.items()}, 0, 0)] == [1, 3, 4, 5]

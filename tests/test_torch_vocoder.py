@@ -167,13 +167,20 @@ def test_g721_blocks_ragged_chunks_equal_the_whole_call(mode):
                                T(codes))[1].numpy())
 
 
-def test_g72x_unroll_does_not_change_the_result():
+def test_g72x_unroll_does_not_change_the_result(monkeypatch):
+    """step_scan's static-buffer path (U steps a StepGraph call, the tail
+    one by one) against the plain loop it takes below 2U steps."""
+    from grtpu_torch.runtime import step_graph
+
     x = T(GOLD["input"][:90].reshape(2, 45))
     st0 = tg72x.g72x_init_state(channels=2, device="cpu")
-    a = tg72x.g72x_encode("g723_40", st0, x, unroll=8)
-    b = tg72x.g72x_encode("g723_40", st0, x, unroll=45)
-    assert torch.equal(a[1], b[1])
-    assert all(torch.equal(p, q) for p, q in zip(a[0], b[0]))
+    outs = []
+    for u in (8, 16, 45):
+        monkeypatch.setattr(step_graph, "UNROLL", u)
+        outs.append(tg72x.g72x_encode("g723_40", st0, x))
+    for st, y in outs[:2]:
+        assert torch.equal(y, outs[2][1])
+        assert all(torch.equal(p, q) for p, q in zip(st, outs[2][0]))
 
 
 # ---------------------------------------------------------------- CVSD
