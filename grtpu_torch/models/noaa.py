@@ -15,7 +15,7 @@ chunk at a time, with no loop over samples (see the class).
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -121,7 +121,6 @@ def encode_words(words: np.ndarray) -> np.ndarray:
 
 # HRPT_MINOR_FRAME_SYNC (noaa_hrpt.h:33 = 0x0A116FD719D83C95, low 60 bits)
 _SYNC60 = 0x0A116FD719D83C95 & ((1 << 60) - 1)
-_MASK60 = (1 << 60) - 1
 _N_DATA = HRPT_MINOR_FRAME_WORDS - len(HRPT_SYNC_WORDS)
 _FRAME_SAMPLES = 2 * _N_DATA * HRPT_BITS_PER_WORD     # 221,680
 

@@ -77,8 +77,8 @@ class StepGraph:
         self.capture_seconds = time.perf_counter() - t0
 
 
-# Steps a StepGraph replay runs in step_scan.  Chosen on the card by
-# chip_smoke phase 12 (G.721 bank 64 x 2^14 at U = 16, 32 and 64).
+# Steps a StepGraph replay runs in step_scan: the fastest of U = 16, 32
+# and 64 on chip_smoke phase 12's G.721 bank (64 channels, NVIDIA H100).
 UNROLL = 32
 # What step_scan's graphs cost, summed over calls: read and zeroed by
 # chip_smoke around a phase, as cuda_fir.launches is.
@@ -95,8 +95,8 @@ def _store(dst, vals):
     """Copy ``vals`` into the static buffers ``dst``; a value that shares
     memory with a destination is cloned before the first copy."""
     ptrs = {d.untyped_storage().data_ptr() for d in dst}
-    staged = [v.clone() if v.untyped_storage().data_ptr() in ptrs else v
-              for v in vals]
+    staged = [v if v is d or v.untyped_storage().data_ptr() not in ptrs
+              else v.clone() for d, v in zip(dst, vals)]
     for d, v in zip(dst, staged):
         if v is not d:
             d.copy_(v)

@@ -80,7 +80,6 @@ _NS = 2 * 159 + 8
 _S_2K = np.arange(_NS)[:, None] - 7 + np.arange(8)[None, :]      # (326, 8)
 _S_ACT = (_S_2K >= 0) & (_S_2K % 2 == 0) & (_S_2K < 320)
 _S_ZONE = _ZONE_OF[np.clip(_S_2K // 2, 0, 159)]
-_S_FEED = np.zeros(_NS + 1, np.int64)        # step t feeds stage 7 sample t/2
 _S_OUT = 7 + 2 * np.arange(160)              # step of stage 0 for sample k
 
 # --- 33-byte frame packing (gsm_encode.c regular branch, MSB-first) ----------
