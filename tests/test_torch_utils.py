@@ -230,7 +230,8 @@ def test_default_device_is_the_card():
     from grtpu_torch.runtime import top_block
     from grtpu_torch.utils import testing
     from grtpu_torch.fec import conv
-    from grtpu_torch.models import atsc, atsc_rf
+    from grtpu_torch.models import atsc, atsc_rf, digital_voice
+    from grtpu_torch.vocoder import cvsd, g72x, gsm
 
     for fn in (pfb_blocks.pfb_clock_sync_init,
                pfb_blocks.pfb_clock_sync_windowed_init, dsp.nco_sin,
@@ -248,7 +249,10 @@ def test_default_device_is_the_card():
                atsc_rf.AtscEqualizerLms.__init__,
                atsc_rf.AtscEqualizerDfe.__init__,
                atsc_rf.AtscEqualizerNop.__init__,
-               atsc_rf.AtscRfReceiver.__init__):
+               atsc_rf.AtscRfReceiver.__init__, g72x.g72x_init_state,
+               cvsd.cvsd_init_state, gsm.gsm_init_encode_state,
+               gsm.gsm_init_decode_state, digital_voice.DigitalVoiceTx.__init__,
+               digital_voice.DigitalVoiceRx.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     src = inspect.getsource(device)
     assert "is_available" not in src
