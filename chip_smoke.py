@@ -180,7 +180,39 @@ Phases (each raises on failure; nothing is caught):
         words sent, HrptDecoder's report with 2 frames and 0 sequence
         errors; the FLEX numeric page of tests/test_pager_misc.py:197-234
         through PagerSlicer under device_loop.
- 13. Print one JSON line of per-kernel results (the eight kernels) and,
+ 13. Config #1 from a flowgraph file and over UDP, the host I/O, the GUI
+     sinks and the trace tools (launch counts zeroed before and printed
+     after; the phase must end within 120 s):
+     a. phase 6a's capture written to a .cfile and a JSON spec
+        (gr_file_source -> gr_freq_xlating_fir_filter_xxx with phase 6a's
+        tuner -> blks2_wfm_rcv {impl: kernel} -> gr_wavfile_sink, chunk
+        524,288, 16 steps) run as users run it, ``python -m grtpu_torch.grc
+        run spec.json`` in a subprocess on the default device, then
+        in-process (FlowgraphSpec.build + StreamExecutor) eagerly and under
+        run(device_loop=True), each twice.  Gates: fir_decim_mma_fwd
+        launched 16 times a run and nothing else, in all three; the modes
+        torch.equal; the WAV's audio SNR > 30 dB and its int16 samples
+        within 1 LSB of save_wav applied to phase 6a's audio.  Prints
+        Msamples/s of input: the command line's wall, with its process
+        start, its build (the file read included) and its run apart, and
+        both in-process modes;
+     b. the same chain as a GRC 3.5 .grc file written here (variables in
+        any order, the taps as a firdes.low_pass expression, a virtual
+        sink/source pair, a disabled block) through run_grc on the card:
+        within 1e-5 of phase 6a's impl="mxu" audio, 0 kernel launches (the
+        adapters take impl auto);
+     c. the WBFM receiver as a service: 2^20 samples at 256 kS/s sent over
+        localhost UDP (UdpSink -> UdpSource.chunks(4096) -> stream() over
+        WfmRcv(impl="kernel") -> UdpSink -> UdpSource): every item in, the
+        audio equal to the in-memory run; the same stream from the capture
+        file through NativeFileSource (the native ring and its file pump)
+        torch.equal to it; native.available() must be True; Msamples/s and
+        256 launches each;
+     d. the GUI sinks fed from the card, each display array within 1e-5 of
+        the same sink fed on the CPU (PNG sizes, or "not rendered: no
+        matplotlib"); TracedExecutor one line a step; block_timings per
+        block; validate_state empty; profile() writes a Chrome trace.
+ 14. Print one JSON line of per-kernel results (the eight kernels) and,
      last, the device line.
 
 Every executor path of phases 4-11 runs twice eagerly and twice under
@@ -1232,7 +1264,9 @@ def run_tuner_wbfm(torch, cf):
           f"measures it (mean over 8 capture samples) "
           f"{audio_snr(audio['kernel'], ref_d):.2f} "
           f"dB, without noise {audio_snr(y_quiet, ref_d):.2f} dB", flush=True)
-    return rate, counts
+    # phase 13 runs the same chain from a flowgraph file on the same capture
+    return rate, counts, {"capture": x, "taps": taps, "audio": audio,
+                          "snr": audio_snr}
 
 
 def run_fm_family(torch):
@@ -3256,6 +3290,451 @@ def run_noaa_and_pager(torch):
         fail("12e FLEX page")
 
 
+# ------------------------- phase 13 (flowgraph files, host I/O, GUI, trace)
+PHASE13_LIMIT_S = 120.0
+AUDIO_RATE = int(CAPTURE_FS / TUNER_DECIM / AUDIO_DECIM)   # 32 kS/s
+SERVICE_SAMPLES = 1 << 20     # 4 s at the quad rate
+SERVICE_CHUNK = 4096
+SERVICE_CREDITS = 2           # chunks the UDP sender may run ahead: a
+                              # socket's receive buffer must hold them
+
+
+def zero_launches(cf):
+    for name in cf.launches:
+        cf.launches[name] = 0
+
+
+def clone_state(state):
+    from grtpu_torch.runtime.executor import _leaves, _replace_leaves
+
+    return _replace_leaves(state, {p: t.clone() for p, t in _leaves(state)})
+
+
+def config1_spec(cap, wav, taps, impl="kernel"):
+    """Phase 6a's chain as a flowgraph spec: capture file -> tuner -> WBFM
+    (its audio FIR on ``impl``) -> WAV, chunk 524,288, the whole capture."""
+    return {
+        "options": {"id": "config1", "chunk_size": CAPTURE_CHUNK,
+                    "steps": CAPTURE_SAMPLES // CAPTURE_CHUNK},
+        "blocks": [
+            {"id": "src", "key": "gr_file_source", "params": {"path": cap}},
+            {"id": "tuner", "key": "gr_freq_xlating_fir_filter_xxx",
+             "params": {"decimation": TUNER_DECIM,
+                        "taps": [float(v) for v in taps],
+                        "center_freq": TUNE_HZ, "sampling_freq": CAPTURE_FS}},
+            {"id": "rcv", "key": "blks2_wfm_rcv",
+             "params": {"quad_rate": QUAD_RATE,
+                        "audio_decimation": AUDIO_DECIM, "impl": impl}},
+            {"id": "wav", "key": "gr_wavfile_sink",
+             "params": {"path": wav, "rate": AUDIO_RATE}}],
+        "connections": [["src", 0, "tuner", 0], ["tuner", 0, "rcv", 0],
+                        ["rcv", 0, "wav", 0]]}
+
+
+def wav_pcm(path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def run_spec_file(torch, cf, tmp, config1):
+    """13a: config #1 from a JSON spec file, through the command line and
+    in-process in both run modes."""
+    import ast
+    import json
+    import os
+    import re
+
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.grc import load_flowgraph
+    from grtpu_torch.io.file import save_capture, save_wav
+
+    cap, wav, spec_path = tmp / "capture.cfile", tmp / "audio.wav", \
+        tmp / "config1.json"
+    t0 = time.perf_counter()
+    save_capture(str(cap), config1["capture"])
+    spec_path.write_text(json.dumps(config1_spec(str(cap), str(wav),
+                                                 config1["taps"])))
+    print(f"13a spec: {spec_path.name}, capture file {cap.stat().st_size} "
+          f"bytes written in {time.perf_counter() - t0:.2f} s", flush=True)
+    nchunks = CAPTURE_SAMPLES // CAPTURE_CHUNK
+
+    # as users run it: the command line, default device (the card)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "grtpu_torch.grc", "run",
+                        str(spec_path)], capture_output=True, text=True,
+                       cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"13a python -m grtpu_torch.grc run exited {r.returncode}:\n"
+             f"{r.stdout}\n{r.stderr}")
+    m = re.search(r"on (\S+): build ([\d.]+) s \(files read\), run ([\d.]+) "
+                  r"s \((\d+) steps\), flush ([\d.]+) s; hand kernel "
+                  r"launches (\{.*\})", r.stdout)
+    if m is None:
+        fail(f"13a: the command line printed no timing line:\n{r.stdout}")
+    build_s, run_s, flush_s = (float(m.group(i)) for i in (2, 3, 5))
+    cli_launches = ast.literal_eval(m.group(6))
+    print(f"13a command line on {m.group(1)}: {CAPTURE_SAMPLES} input "
+          f"samples, wall {wall:.3f} s = {CAPTURE_SAMPLES / wall / 1e6:.2f} "
+          f"Msamples/s of input; of it process start and imports "
+          f"{wall - build_s - run_s - flush_s:.3f} s, build with the file "
+          f"read {build_s:.3f} s, run {run_s:.3f} s "
+          f"({CAPTURE_SAMPLES / run_s / 1e6:.2f} Msamples/s, first run of a "
+          f"fresh process), WAV write {flush_s:.3f} s; launches "
+          f"{cli_launches}", flush=True)
+    if cli_launches != {"fir_decim_mma_fwd": nchunks}:
+        fail(f"13a: the command line launched {cli_launches}; expected "
+             f"fir_decim_mma_fwd {nchunks} times and nothing else")
+
+    pcm = wav_pcm(wav)
+    save_wav(str(tmp / "phase6a.wav"), AUDIO_RATE,
+             config1["audio"]["kernel"])
+    ref = wav_pcm(tmp / "phase6a.wav")
+    lsb = int(np.abs(pcm.astype(np.int32) - ref).max()) if \
+        pcm.shape == ref.shape else None
+    snr = config1["snr"](pcm.astype(np.float32) / 32767.0)
+    print(f"13a WAV: {pcm.shape[0]} samples at {AUDIO_RATE} S/s, SNR "
+          f"{snr:.2f} dB (gate 30 dB), max |int16 - save_wav(phase 6a)| "
+          f"{lsb} LSB (gate 1)", flush=True)
+    if pcm.shape != ref.shape or lsb > 1:
+        fail("13a: the WAV differs from phase 6a's audio by more than 1 LSB")
+    if not snr > 30.0:
+        fail(f"13a: WAV SNR {snr:.2f} dB <= 30 dB")
+
+    # in-process: FlowgraphSpec.build + StreamExecutor, each mode in an
+    # executor of its own, run twice (the first warms up and captures)
+    outs = {}
+    for mode in ("eager", "device_loop"):
+        g, byid = load_flowgraph(str(spec_path)).build()
+        ex = StreamExecutor(g, chunk_size=CAPTURE_CHUNK, device="cuda")
+        state0 = clone_state(ex.state)
+        ex.run(steps=nchunks, device_loop=mode == "device_loop")
+        ex.state = clone_state(state0)
+        zero_launches(cf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.run(steps=nchunks, device_loop=mode == "device_loop")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in cf.launches.items() if v}
+        outs[mode] = byid["wav"].captured[0]
+        print(f"13a in-process {mode}: {CAPTURE_SAMPLES / secs / 1e6:.2f} "
+              f"Msamples/s of input (second run, {secs:.3f} s); launches "
+              f"{launched}", flush=True)
+        if launched != {"fir_decim_mma_fwd": nchunks}:
+            fail(f"13a in-process {mode} launched {launched}; expected "
+                 f"fir_decim_mma_fwd {nchunks} times and nothing else")
+    same = torch.equal(outs["eager"], outs["device_loop"])
+    inproc = np.clip(np.round(outs["eager"].cpu().numpy() * 32767.0),
+                     -32768, 32767).astype(np.int16)
+    print(f"13a device_loop torch.equal to eager: {same}; in-process PCM "
+          f"equal to the command line's WAV: {np.array_equal(inproc, pcm)}",
+          flush=True)
+    if not same:
+        fail("13a: the device_loop output differs from the eager output")
+
+
+def grc_xml(path, blocks, connections):
+    """A GRC 3.5 flow_graph file: blocks (key, {param: value}) with an ``id``
+    param each; connections (src, src_port, dst, dst_port)."""
+    from xml.sax.saxutils import escape
+
+    out = ["<?xml version='1.0' encoding='ASCII'?>", "<flow_graph>"]
+    for key, params in blocks:
+        out.append(f"<block><key>{key}</key>" + "".join(
+            f"<param><key>{k}</key><value>{escape(str(v))}</value></param>"
+            for k, v in params.items()) + "</block>")
+    for s, sp, d, dp in connections:
+        out.append(f"<connection><source_block_id>{s}</source_block_id>"
+                   f"<sink_block_id>{d}</sink_block_id><source_key>{sp}"
+                   f"</source_key><sink_key>{dp}</sink_key></connection>")
+    out.append("</flow_graph>")
+    path.write_text("\n".join(out) + "\n")
+    return str(path)
+
+
+def run_grc_file(torch, cf, tmp, config1):
+    """13b: the same chain as a .grc file through run_grc on the card."""
+    from grtpu_torch.grc.grcxml import run_grc
+
+    path = grc_xml(tmp / "config1.grc", [
+        ("options", {"id": "config1"}),
+        ("variable", {"id": "quad_rate", "value": "samp_rate / decim"}),
+        ("variable", {"id": "samp_rate", "value": repr(CAPTURE_FS)}),
+        ("variable", {"id": "decim", "value": str(TUNER_DECIM)}),
+        ("gr_file_source", {"id": "src", "file": repr(str(tmp / "capture.cfile")),
+                            "type": "complex", "repeat": "False"}),
+        ("gr_freq_xlating_fir_filter_xxx", {
+            "id": "tuner", "type": "ccc", "decim": "decim",
+            "taps": "firdes.low_pass(1.0, samp_rate, 100e3, 50e3)",
+            "center_freq": repr(TUNE_HZ), "samp_rate": "samp_rate"}),
+        ("blks2_wfm_rcv", {"id": "rcv", "quad_rate": "quad_rate",
+                           "audio_decimation": str(AUDIO_DECIM)}),
+        ("virtual_sink", {"id": "vsink", "stream_id": "audio"}),
+        ("virtual_source", {"id": "vsource", "stream_id": "audio"}),
+        ("gr_vector_sink_x", {"id": "out", "type": "float", "vlen": "1"}),
+        ("gr_null_sink", {"id": "unused", "type": "complex", "vlen": "1",
+                          "_enabled": "False"})],
+        [("src", 0, "tuner", 0), ("tuner", 0, "rcv", 0),
+         ("rcv", 0, "vsink", 0), ("vsource", 0, "out", 0),
+         ("tuner", 0, "unused", 0)])
+    zero_launches(cf)
+    t0 = time.perf_counter()
+    ex, byid = run_grc(path, steps=CAPTURE_SAMPLES // CAPTURE_CHUNK,
+                       chunk_size=CAPTURE_CHUNK, device="cuda")
+    y = byid["out"].captured[0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dict(cf.launches)
+    mxu = torch.from_numpy(config1["audio"]["mxu"]).to("cuda")
+    err = (y - mxu).abs().max().item() if y.shape == mxu.shape else None
+    print(f"13b .grc (2 variables in any order, firdes taps expression, a "
+          f"virtual sink/source pair, a disabled block) on the card: "
+          f"{CAPTURE_SAMPLES / secs / 1e6:.2f} Msamples/s of input with the "
+          f"load (first run); audio filter impl "
+          f"{byid['rcv'].audio_filter.impl}; max |audio - mxu chain| {err} "
+          f"(tol 1e-5); kernel launches {sum(launched.values())}", flush=True)
+    if err is None or not err <= 1e-5:
+        fail("13b: the .grc chain disagrees with the in-memory mxu chain")
+    if sum(launched.values()):
+        fail(f"13b: the .grc path (impl auto -> mxu) launched {launched}")
+
+
+def service_signal(n, seed=13):
+    """n complex64 samples of one WBFM station at the quad rate: a 1 kHz
+    tone at 75 kHz deviation, with noise."""
+    t = np.arange(n) / QUAD_RATE
+    msg = 0.5 * np.sin(2 * np.pi * 1000.0 * t)
+    x = np.exp(1j * np.cumsum(2 * np.pi * 75e3 / QUAD_RATE * msg))
+    r = np.random.RandomState(seed)
+    return (x + 0.01 * (r.randn(n) + 1j * r.randn(n))).astype(np.complex64)
+
+
+def service_executor(torch):
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.models.fm import WfmRcv
+
+    g = chain_graph(torch, [WfmRcv(QUAD_RATE, AUDIO_DECIM, impl="kernel")],
+                    torch.complex64, [torch.float32])
+    return StreamExecutor(g, chunk_size=SERVICE_CHUNK, device="cuda")
+
+
+def run_service(torch, cf, tmp):
+    """13c: the WBFM receiver as a service over localhost UDP, and fed from
+    the native ring."""
+    import socket
+    import threading
+
+    from grtpu_torch.io import native
+    from grtpu_torch.io.udp import UdpSink, UdpSource
+
+    x = service_signal(SERVICE_SAMPLES)
+    nchunks = SERVICE_SAMPLES // SERVICE_CHUNK
+    n_audio = SERVICE_SAMPLES // AUDIO_DECIM
+    ref = service_executor(torch).run(torch.from_numpy(x).to("cuda"))
+    torch.cuda.synchronize()
+
+    # samples in over UDP -> stream() -> audio out over UDP
+    src = UdpSource("127.0.0.1", 0, np.complex64, timeout=5.0)
+    audio_rx = UdpSource("127.0.0.1", 0, np.float32, timeout=5.0)
+    for sock in (src.sock, audio_rx.sock):
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    rcvbuf = src.sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    audio_tx = UdpSink("127.0.0.1", audio_rx.sock.getsockname()[1],
+                       np.float32)
+    iq_tx = UdpSink("127.0.0.1", src.sock.getsockname()[1], np.complex64)
+    credits = threading.Semaphore(SERVICE_CREDITS)
+    got = {}
+
+    def send():
+        for c in range(nchunks):
+            credits.acquire()
+            iq_tx.write_items(x[c * SERVICE_CHUNK:(c + 1) * SERVICE_CHUNK])
+        iq_tx.close()
+
+    def receive():
+        got["audio"] = audio_rx.read_items(n_audio)
+
+    def chunks():
+        for arr in src.chunks(SERVICE_CHUNK):
+            got["items"] = got.get("items", 0) + len(arr)
+            credits.release()
+            yield arr
+
+    ex = service_executor(torch)
+    ex.run(torch.from_numpy(x[:2 * SERVICE_CHUNK]).to("cuda"))  # warm-up
+    ex = service_executor(torch)
+    threads = [threading.Thread(target=send), threading.Thread(target=receive)]
+    zero_launches(cf)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for y in ex.stream(chunks()):
+        audio_tx.write_items(y.cpu().numpy())
+    audio_tx.close()
+    for t in threads:
+        t.join(timeout=30)
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in cf.launches.items() if v}
+    for sock in (src, audio_rx):
+        sock.close()
+    if any(t.is_alive() for t in threads):
+        fail("13c: a UDP thread did not finish")
+    audio = got.get("audio")
+    equal = audio is not None and np.array_equal(audio, ref.cpu().numpy())
+    print(f"13c UDP service: {got.get('items', 0)} of {SERVICE_SAMPLES} "
+          f"samples in, {0 if audio is None else len(audio)} of {n_audio} "
+          f"audio samples out, {SERVICE_SAMPLES / secs / 1e6:.2f} Msamples/s "
+          f"of input (chunk {SERVICE_CHUNK}, sender {SERVICE_CREDITS} chunks "
+          f"ahead at most, receive buffer {rcvbuf} bytes); audio equal to the in-memory run: {equal}; "
+          f"launches {launched}", flush=True)
+    if got.get("items") != SERVICE_SAMPLES or not equal:
+        fail("13c: the UDP service lost items or changed the audio")
+    if launched.get("fir_decim_mma_fwd") != nchunks:
+        fail(f"13c: the UDP service launched {launched}")
+
+    # capture file -> native ring (pump thread) -> stream()
+    ok = native.available()
+    print(f"13c native ring: available() {ok}, library "
+          f"{native.library_path().relative_to(REPO)}", flush=True)
+    if not ok:
+        fail("13c: the native ring did not build (no host C++ compiler)")
+    path = tmp / "service.cfile"
+    x.tofile(path)
+    ex = service_executor(torch)
+    zero_launches(cf)
+    t0 = time.perf_counter()
+    src = native.NativeFileSource(str(path), np.complex64)
+    y = torch.cat(list(ex.stream(src.chunks(SERVICE_CHUNK))))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    src.close()
+    launched = {k: v for k, v in cf.launches.items() if v}
+    same = torch.equal(y, ref)
+    print(f"13c ring -> stream(): {SERVICE_SAMPLES / secs / 1e6:.2f} "
+          f"Msamples/s of input; torch.equal to the in-memory run: {same}; "
+          f"launches {launched}", flush=True)
+    if not same:
+        fail("13c: the ring path differs from the in-memory run")
+    if launched.get("fir_decim_mma_fwd") != nchunks:
+        fail(f"13c: the ring path launched {launched}")
+    return ref
+
+
+def run_gui_and_trace(torch, tmp, audio):
+    """13d: the GUI sinks fed from the card against the CPU; the trace tools
+    on the card."""
+    from grtpu_torch import Graph, Port, StreamExecutor
+    from grtpu_torch import gui
+    from grtpu_torch.utils import trace
+
+    x = service_signal(1 << 16, seed=14)
+    a = audio[: 1 << 13].cpu().numpy()
+
+    def sinks():
+        return {"fft": gui.FftSink(1024, QUAD_RATE),
+                "waterfall": gui.WaterfallSink(512, QUAD_RATE),
+                "const": gui.ConstSink(4096),
+                "scope": gui.ScopeSink(512, QUAD_RATE / AUDIO_DECIM),
+                "number": gui.NumberSink(0.05),
+                "histo": gui.HistoSinkDisplay(64)}
+
+    def displays(device):
+        s = sinks()
+        for pad_dtype, keys, data in (
+                (torch.complex64, ("fft", "waterfall", "const"), x),
+                (torch.float32, ("scope", "number", "histo"), a)):
+            g = Graph()
+            pin = g.add_input(Port(pad_dtype))
+            for k in keys:
+                g.connect(pin, s[k])
+            StreamExecutor(g, chunk_size=8192, device=device).run(data)
+        return s, {"fft spectra": s["fft"].spectra(),
+                   "fft spectrum": s["fft"].spectrum(),
+                   "waterfall": s["waterfall"].spectra(),
+                   "const": s["const"].points(),
+                   "scope": np.stack(s["scope"].frames(0.0, "pos")),
+                   "number": s["number"].trajectory(),
+                   "histo": s["histo"].histogram()[0].astype(np.float64)}
+
+    card, got = displays("cuda")
+    _, want = displays("cpu")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) if got[k].shape ==
+            want[k].shape else float("inf") for k in want}
+    print(f"13d GUI sinks fed from the card, max |card - CPU| of each display "
+          f"array (tol 1e-5): {errs}", flush=True)
+    if not max(errs.values()) <= 1e-5:
+        fail("13d: a GUI sink's display differs between the card and the CPU")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("13d GUI sinks: not rendered: no matplotlib", flush=True)
+    else:
+        sizes = {k: Path(s.render(str(tmp / f"{k}.png"))).stat().st_size
+                 for k, s in card.items()}
+        print(f"13d GUI sinks rendered, PNG bytes: {sizes}", flush=True)
+
+    ex = service_executor(torch)
+    tx = trace.TracedExecutor(ex)
+    xs = torch.from_numpy(service_signal(8 * SERVICE_CHUNK, seed=15)).to(
+        "cuda")
+    for c in range(8):
+        tx.step(xs[c * SERVICE_CHUNK:(c + 1) * SERVICE_CHUNK])
+    print(f"13d TracedExecutor: {len(tx.lines)} lines for 8 steps; last: "
+          f"{tx.lines[-1]}", flush=True)
+    if len(tx.lines) != 8 or not all(
+            line.startswith(f"step={i} wall_ms=")
+            for i, line in enumerate(tx.lines)):
+        fail("13d: TracedExecutor did not log one line a step")
+    problems = trace.validate_state(ex)
+    print(f"13d validate_state after 8 steps: {problems}", flush=True)
+    if problems:
+        fail("13d: validate_state found problems")
+    timings = trace.block_timings(ex, iters=5)
+    print("13d block_timings on the card (ms a chunk of "
+          f"{SERVICE_CHUNK}, median of 5, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()), flush=True)
+    if not all(v >= 0 for v in timings.values()):
+        fail(f"13d: block_timings {timings}")
+    with trace.profile(str(tmp / "profile")) as prof:
+        for c in range(4):
+            ex.step(xs[c * SERVICE_CHUNK:(c + 1) * SERVICE_CHUNK])
+        torch.cuda.synchronize()
+    files = list((tmp / "profile").glob("trace_*.json"))
+    size = files[0].stat().st_size if files else 0
+    kernels = sum(1 for e in prof.key_averages()
+                  if getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0)) > 0)
+    print(f"13d profile(): Chrome trace of 4 steps, {size} bytes, "
+          f"{kernels} ops with device time", flush=True)
+    if not size:
+        fail("13d: profile() wrote no trace")
+
+
+def run_phase13(torch, cf, config1):
+    """Phase 13: config #1 from a spec file and a .grc file, the UDP and
+    ring service, the GUI sinks and trace tools, on the card."""
+    import tempfile
+
+    zero_launches(cf)
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke13_") as d:
+        tmp = Path(d)
+        run_spec_file(torch, cf, tmp, config1)
+        run_grc_file(torch, cf, tmp, config1)
+        audio = run_service(torch, cf, tmp)
+        run_gui_and_trace(torch, tmp, audio)
+    secs = time.perf_counter() - t13
+    print(f"phase 13 path launches (13c's ring path, the last counted): "
+          f"{dict(cf.launches)}; phase 13 took {secs:.1f} s (limit "
+          f"{PHASE13_LIMIT_S:g} s)", flush=True)
+    if secs > PHASE13_LIMIT_S:
+        fail(f"phase 13 took {secs:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3304,7 +3783,7 @@ def main() -> int:
 
     # phase 6: config #1 in full (tuner -> WBFM) and the FM family; its own
     # launch counts, zeroed before and read after
-    run_tuner_wbfm(torch, cf)
+    _, _, config1 = run_tuner_wbfm(torch, cf)
     run_fm_family(torch)
 
     # phase 7: config #2, the polyphase filterbank (no hand kernel)
@@ -3378,7 +3857,11 @@ def main() -> int:
     if secs12 > PHASE12_LIMIT_S:
         fail(f"phase 12 took {secs12:.1f} s")
 
-    # phase 13: report, for each kernel the case the main path launches most
+    # phase 13: config #1 from a flowgraph file and over UDP, host I/O, the
+    # GUI sinks and the trace tools; launch counts zeroed before, read after
+    run_phase13(torch, cf, config1)
+
+    # phase 14: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),

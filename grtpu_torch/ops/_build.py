@@ -9,6 +9,9 @@ the repository root (listed in ``.gitignore``), keyed on a hash of the
 source, the header and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs when the module is imported:
 :func:`library` builds on its first call.
+
+:func:`host_library` builds the host I/O runtime (``grtpu_torch/io/native``)
+the same way, with the host C++ compiler, into the same directory.
 """
 
 from __future__ import annotations
@@ -44,17 +47,21 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
+def hashed_path(stem: str, files, flags) -> Path:
+    """The library path under ``BUILD_DIR`` for these source files and
+    flags: an edited file or flag gives another path."""
+    h = hashlib.sha256()
+    for f in files:
+        h.update(Path(f).read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
 def library_paths() -> list[Path]:
     """Paths of the built libraries for the current sources and flags, one
     per source."""
-    out = []
-    for src in SOURCES:
-        h = hashlib.sha256(src.read_bytes())
-        for header in HEADERS:
-            h.update(header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        out.append(BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so")
-    return out
+    return [hashed_path(src.stem, (src, *HEADERS), NVCC_FLAGS)
+            for src in SOURCES]
 
 
 def build() -> list[Path]:
@@ -80,6 +87,29 @@ def build() -> list[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def host_library(stem: str, sources, flags, libs=()) -> Path | None:
+    """Compile ``sources`` into one shared library with the host C++
+    compiler (``c++``, else ``g++``, else ``clang++``), linking ``libs``,
+    unless the library for these sources and flags is built already; None
+    where no compiler builds it."""
+    out = hashed_path(stem, sources, (*flags, *libs))
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    for cc in ("c++", "g++", "clang++"):
+        try:
+            subprocess.run([cc, *flags, "-o", str(tmp), *map(str, sources),
+                            *libs],
+                           check=True, capture_output=True, timeout=120)
+        except (subprocess.CalledProcessError, FileNotFoundError,
+                subprocess.TimeoutExpired):
+            continue
+        os.replace(tmp, out)  # atomic: no process loads half a file
+        return out
+    return None
 
 
 def library() -> SimpleNamespace:

@@ -42,6 +42,14 @@ def torch_dtype(dtype) -> torch.dtype:
     return _NUMPY_TO_TORCH[np.dtype(dtype)]
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """A numpy dtype from a torch dtype, a numpy dtype or a numpy type (for
+    data read or made on the host)."""
+    if isinstance(dtype, torch.dtype):
+        return next(k for k, v in _NUMPY_TO_TORCH.items() if v == dtype)
+    return np.dtype(dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class Port:
     """Typed stream endpoint: torch dtype + per-item vector length.

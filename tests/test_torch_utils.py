@@ -163,7 +163,13 @@ PORTED_WHOLE = ["ops.fir", "ops.dsp", "ops.pfb", "ops.mmse_interp",
                 "utils.firdes", "utils.testing",
                 "trellis.fsm", "trellis.interleaver",
                 "trellis.fsm_utils", "trellis.algorithms", "trellis.blocks",
-                "fec.rs", "fec.conv"]
+                "fec.rs", "fec.conv",
+                "io.file", "io.udp", "io.tcp", "io.msgio", "io.xmlrpc",
+                "io.xmlrpc_ctl", "io.native",
+                "grc.registry", "grc.flowgraph", "grc.grcxml",
+                "gui",
+                "utils.trace", "utils.plot", "utils.prefs", "utils.scaffold",
+                "utils.filter_design"]
 # grtpu keeps the matmul mode in a module global; the port takes it per call
 NOT_PORTED_BY_DESIGN = {"ops.fir": {"set_precision"}}
 
