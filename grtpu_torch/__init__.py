@@ -25,11 +25,12 @@ What changes in the port:
 
 This package imports neither ``jax`` nor ``grtpu``.
 
-Layout (the slices ported so far, PR 1 to PR 11: the FIR substrate and its
+Layout (the slices ported so far, PR 1 to PR 12: the FIR substrate and its
 kernels; WBFM and the FM family; the polyphase filterbank; DMR 4FSK; the
 executor's run modes; the digital modem stack; messages, tags, packets and
 OFDM; trellis, FEC and ATSC; the rest of the block library, the vocoders
-and the voice, pager and NOAA models):
+and the voice, pager and NOAA models; flowgraph files, host I/O, the GUI
+sinks and the trace tools):
     grtpu_torch.runtime -- Block protocol and StreamSpec, graph builder,
                            time-block executor (fixed rate, the
                            variable-rate FIFO, stream tags, device_loop),
@@ -50,9 +51,18 @@ and the voice, pager and NOAA models):
     grtpu_torch.models  -- the FM family, DMR, the channel model, ATSC
                            8-VSB, digital voice (GSM over GMSK), the FLEX
                            pager bit layer, NOAA HRPT
+    grtpu_torch.grc     -- the flowgraph compiler: JSON / YAML specs and
+                           .grc XML to graphs, generated scripts, the
+                           command line (python -m grtpu_torch.grc)
+    grtpu_torch.io      -- capture and WAV files, UDP / TCP, message
+                           bridges, XML-RPC control, the native ring
+    grtpu_torch.gui     -- headless spectrum, waterfall, scope,
+                           constellation, number and histogram sinks
     grtpu_torch.utils   -- firdes and optfir tap design, the Parks-McClellan
                            engine, engineering notation, the default
-                           device, test helpers, the idle-share profiler
+                           device, test helpers, the idle-share profiler,
+                           tracing and block timing, preferences, the plot
+                           and filter-design CLIs, the module scaffold
 """
 
 __version__ = "0.1.0"
