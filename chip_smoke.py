@@ -3728,8 +3728,8 @@ def run_phase13(torch, cf, config1):
         audio = run_service(torch, cf, tmp)
         run_gui_and_trace(torch, tmp, audio)
     secs = time.perf_counter() - t13
-    print(f"phase 13 path launches (13c's ring path, the last counted): "
-          f"{dict(cf.launches)}; phase 13 took {secs:.1f} s (limit "
+    print(f"phase 13 launches since 13c's ring path began (the ring's and "
+          f"13d's): {dict(cf.launches)}; phase 13 took {secs:.1f} s (limit "
           f"{PHASE13_LIMIT_S:g} s)", flush=True)
     if secs > PHASE13_LIMIT_S:
         fail(f"phase 13 took {secs:.1f} s")
