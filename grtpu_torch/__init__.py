@@ -25,7 +25,7 @@ What changes in the port:
 
 This package imports neither ``jax`` nor ``grtpu``.
 
-Layout (the slices ported so far, PR 1 to PR 12: the FIR substrate and its
+Layout (the slices ported so far: the FIR substrate and its
 kernels; WBFM and the FM family; the polyphase filterbank; DMR 4FSK; the
 executor's run modes; the digital modem stack; messages, tags, packets and
 OFDM; trellis, FEC and ATSC; the rest of the block library, the vocoders
