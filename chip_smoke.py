@@ -212,7 +212,39 @@ Phases (each raises on failure; nothing is caught):
         the same sink fed on the CPU (PNG sizes, or "not rendered: no
         matplotlib"); TracedExecutor one line a step; block_timings per
         block; validate_state empty; profile() writes a Chrome trace.
- 14. Print one JSON line of per-kernel results (the eight kernels) and,
+ 14. The mesh executor and the parallel package on the card, meshes of
+     logical shards on the one card (the phase must end within 120 s):
+     a. config #1's bank (benchmarks/wfm_bench.py:35-40: 64 channels of 2^18
+        samples at 256 kS/s, decimation 8; channel c an FM tone at 1000 +
+        50 c Hz, channel 0 phase 4's) through MeshExecutor over
+        WfmRcv(impl="kernel"), chunk 65,536, on (time, chan) meshes (1,1)
+        and (2,2), eager and under run(device_loop=True), each run twice.
+        Gates: every channel of both runs torch.equal to its own
+        single-device StreamExecutor on (1,1), within atol 2e-6, rtol 1e-5
+        on (2,2); the modes torch.equal; fir_decim_mma_fwd launched once a
+        channel, time shard and chunk (256 and 512 a run) and nothing else;
+        the (2,2) kernel route within 1e-4 of the same mesh on mxu; channel
+        0's audio SNR > 30 dB.  Prints Msamples/s of input of each mesh and
+        mode (the second run), the route, the launches, and one
+        fir_decim_mma_fwd call's ms at a shard's size beside the mxu route;
+     b. ShardedWfmBank(nchannels=64) through jitted() (replayed from a CUDA
+        graph) over three 64 x 2^18 steps on (2,2) against (1,1): audio
+        within 2e-4, power rtol 1e-3, state 2e-4 at every step; ms a step;
+     c. __graft_entry__.py::dryrun_multichip's sections on 4 logical shards
+        at its own sizes, each within 1e-4 of the single-device executor:
+        WBFM (and its device_loop run), the channelizer fan-out, the
+        ClockRecoveryMMCC chain, the generic QPSK demod chain (eager: no
+        PfbClockSync capture), the 3-output OfdmReceiver, the FIR pipeline
+        and tap-parallel FIR, the PCCC bank (bits equal to those sent), the
+        packet chain (payload round trip) and a checkpoint saved on (1,2)
+        and restored on (2,2);
+     d. time_sharded_mm over 4 spans of a 2^20-sample stream (grtpu's
+        test_parallel.py gains): every splice's overlap agreement and the
+        kept symbols' agreement with the continuous loop > 0.999.  The
+        spans and the continuous loop run one recursion, so that gate holds
+        the splice; the loop's first 4,096 symbols on the card must be
+        torch.equal to the CPU's eager run of the same stream.
+ 15. Print one JSON line of per-kernel results (the eight kernels) and,
      last, the device line.
 
 Every executor path of phases 4-11 runs twice eagerly and twice under
@@ -3180,8 +3212,9 @@ def run_digital_voice(torch):
     from grtpu_torch.models.digital_voice import DigitalVoiceRx, DigitalVoiceTx
 
     print(f"12d cut: {VOICE_FRAMES} GSM frames of vocoder_bench.py's 50 (1 s "
-          f"of audio): the GMSK receiver's M&M loop runs one symbol at a "
-          f"time, eagerly, on the card and again on the CPU", flush=True)
+          f"of audio): the GMSK receiver's M&M loop runs 32 symbols a "
+          f"replay on the card (step_scan) and one at a time on the CPU",
+          flush=True)
     t = np.arange(160 * VOICE_FRAMES)
     audio = (0.5 * np.sin(2 * np.pi * 300 / 8000 * t)
              + 0.2 * np.sin(2 * np.pi * 1100 / 8000 * t)).astype(np.float32)
@@ -3735,6 +3768,580 @@ def run_phase13(torch, cf, config1):
         fail(f"phase 13 took {secs:.1f} s")
 
 
+# --------------------------------------- phase 14 (the mesh executor layer)
+PHASE14_LIMIT_S = 120.0
+MESH_CHANNELS = 64              # benchmarks/wfm_bench.py:35-40: 64 channels of
+MESH_SAMPLES = 1 << 18          # 2^18 complex samples at 256 kS/s, decimation 8
+MESH_CHUNK = 65536
+MESH_SHAPES = ((1, 1), (2, 2))  # (time, chan) meshes of logical shards
+MESH_ATOL, MESH_RTOL = 2e-6, 1e-5   # grtpu's tests/test_mesh_executor.py
+DRYRUN_ATOL = 1e-4              # __graft_entry__.py::_check_close
+DRYRUN_SHARDS = 4               # 14c: the dryrun's sections on 4 shards
+TSMM_SAMPLES = 1 << 20          # 14d: one stream of 2^20 samples, 4 spans
+TSMM_SPANS = 4
+TSMM_PREFIX = 4096              # 14d: symbols of the loop held against the CPU
+
+
+def mesh_of(torch, shape):
+    from grtpu_torch.runtime.mesh_executor import make_mesh
+
+    n = shape[0] * shape[1]
+    return make_mesh(n, ["cuda"] * n, time=shape[0])
+
+
+def mesh_bank_iq(torch):
+    """MESH_CHANNELS FM stations of MESH_SAMPLES samples at the quad rate,
+    made on the card: channel c carries a 0.5-amplitude tone at 1000 + 50 c
+    Hz (channel 0 is phase 4's tone) at 75 kHz deviation.  Returns (iq,
+    channel 0's message)."""
+    t = torch.arange(MESH_SAMPLES, dtype=torch.float64,
+                     device="cuda") / QUAD_RATE
+    f = 1000.0 + 50.0 * torch.arange(MESH_CHANNELS, dtype=torch.float64,
+                                     device="cuda")
+    msg = 0.5 * torch.sin(2 * np.pi * f[:, None] * t[None, :])
+    phase = torch.cumsum(2 * np.pi * 75e3 / QUAD_RATE * msg, dim=1)
+    iq = torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+    return iq, msg[0].to(torch.float32).cpu().numpy()
+
+
+def mesh_wbfm_graph(torch, impl):
+    from grtpu_torch import Graph
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.models.fm import WfmRcv
+
+    g = Graph()
+    pin = g.add_input(Port(torch.complex64))
+    pout = g.add_output(Port(torch.float32))
+    g.connect(pin, WfmRcv(QUAD_RATE, AUDIO_DECIM, impl=impl), pout)
+    return g
+
+
+def audio_snr(torch, msg, audio):
+    """Recovered audio against the de-emphasized message (phase 4's
+    measure)."""
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.models.fm import FmDeemph
+
+    g = Graph()
+    p = g.add_input(Port(torch.float32))
+    o = g.add_output(Port(torch.float32))
+    g.connect(p, FmDeemph(QUAD_RATE / AUDIO_DECIM, 75e-6), o)
+    ref = StreamExecutor(g, chunk_size=1024, device="cuda").run(
+        msg[::AUDIO_DECIM]).cpu().numpy()
+    settle = 512
+    r, e = align(ref[settle:-settle], audio[settle:-settle])
+    return snr_db(r.astype(np.float64), e.astype(np.float64))
+
+
+def run_mesh_executor(torch, cf):
+    """14a: the WBFM graph with its FIR on the kernel through MeshExecutor
+    on (1,1) and (2,2) meshes of logical shards, eager and under
+    device_loop, each run twice (the state carried); every channel against
+    its own single-device StreamExecutor run twice; the kernel route
+    against the same mesh on mxu.  Returns the launches of each mesh's
+    second runs."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.runtime.mesh_executor import MeshExecutor
+
+    nchan, nsamp, chunk = MESH_CHANNELS, MESH_SAMPLES, MESH_CHUNK
+    iq, msg0 = mesh_bank_iq(torch)
+    refs = []
+    for c in range(nchan):
+        ex = StreamExecutor(mesh_wbfm_graph(torch, "kernel"), chunk_size=chunk,
+                            device="cuda")
+        refs.append((ex.run(iq[c]), ex.run(iq[c])))
+    ref = [torch.stack([r[k] for r in refs]) for k in (0, 1)]
+    nchunks = nsamp // chunk
+    outs, launches = {}, {}
+    for shape in MESH_SHAPES:
+        for mode in ("eager", "device_loop"):
+            mex = MeshExecutor(mesh_wbfm_graph(torch, "kernel"),
+                               mesh_of(torch, shape), nchan, chunk_size=chunk)
+            loop = mode == "device_loop"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y1 = mex.run(iq, device_loop=loop)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            zero_launches(cf)
+            t0 = time.perf_counter()
+            y2 = mex.run(iq, device_loop=loop)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(cf.launches)
+            launches[(shape, mode)] = counts
+            outs[(shape, mode)] = (y1, y2)
+            print(f"14a MeshExecutor {shape} (time, chan) {mode}: "
+                  f"{nchan * nsamp / secs / 1e6:.2f} Msamples/s of input "
+                  f"({nchan} ch x {nsamp}, chunk {chunk}; second run "
+                  f"{secs:.4f} s, first {first:.3f} s); route: {mex.route}; "
+                  f"launches of the second run: {counts}", flush=True)
+            want = nchan * shape[0] * nchunks
+            if (counts["fir_decim_mma_fwd"] != want
+                    or sum(counts.values()) != want):
+                fail(f"14a {shape} {mode} launched {counts}; expected "
+                     f"fir_decim_mma_fwd {want} times and nothing else")
+        for k in (0, 1):
+            a, b = outs[(shape, "eager")][k], outs[(shape, "device_loop")][k]
+            if not torch.equal(a, b):
+                fail(f"14a {shape}: device_loop run {k + 1} differs from "
+                     f"the eager run")
+            if shape == (1, 1):
+                if not torch.equal(a, ref[k]):
+                    fail("14a (1,1): a channel differs from its single-device "
+                         "executor")
+            elif not torch.allclose(a, ref[k], atol=MESH_ATOL,
+                                    rtol=MESH_RTOL):
+                fail(f"14a {shape}: a channel is outside atol {MESH_ATOL}, "
+                     f"rtol {MESH_RTOL} of its single-device executor")
+        err = float((outs[(shape, "eager")][1] - ref[1]).abs().max())
+        print(f"14a {shape}: eager torch.equal device_loop (both runs); max "
+              f"|mesh - single-device| {err:.3e} "
+              f"({'torch.equal' if shape == (1, 1) else 'gate atol 2e-6, rtol 1e-5'})",
+              flush=True)
+    # the kernel route against its twin in the sharded graph: the same
+    # mesh with the FIR on the plain (mxu) route
+    twin = MeshExecutor(mesh_wbfm_graph(torch, "mxu"),
+                        mesh_of(torch, MESH_SHAPES[-1]), nchan,
+                        chunk_size=chunk)
+    twin.run(iq)
+    plain = twin.run(iq)
+    got = outs[(MESH_SHAPES[-1], "eager")][1]
+    rel = float((got - plain).abs().max() / plain.abs().max())
+    print(f"14a {MESH_SHAPES[-1]} kernel route vs mxu route: max_rel_err "
+          f"{rel:.3e} (tol 1e-4)", flush=True)
+    if not rel <= 1e-4:
+        fail("14a: the mesh's kernel route disagrees with its mxu twin")
+    snr = audio_snr(torch, msg0, outs[((1, 1), "eager")][0][0].cpu().numpy())
+    print(f"14a channel 0 (phase 4's tone) audio SNR {snr:.2f} dB (gate 30 dB)",
+          flush=True)
+    if not snr > 30.0:
+        fail(f"14a audio SNR {snr:.2f} dB <= 30 dB")
+    from grtpu_torch.ops import fir
+    from grtpu_torch.utils import firdes
+
+    rate = QUAD_RATE / AUDIO_DECIM                # WfmRcv's audio taps
+    k = firdes.low_pass(1.0, QUAD_RATE, rate / 2 - 1e3, rate / 10,
+                        firdes.Window.HAMMING)
+    for shape in MESH_SHAPES:
+        n_loc = chunk // shape[0]
+        x = torch.randn(n_loc + len(k) - 1, device="cuda")
+        kern = median_ms(lambda: cf.fir_decim(x, k, AUDIO_DECIM), reps=20)
+        mxu = median_ms(lambda: fir.fir_filter(x, k, AUDIO_DECIM), reps=20)
+        print(f"14a route {shape}: fir_decim_mma_fwd one call on a "
+              f"shard's {n_loc} samples {kern:.4f} ms (mxu route "
+              f"{mxu:.4f} ms)", flush=True)
+    return launches
+
+
+def run_sharded_bank(torch):
+    """14b: ShardedWfmBank over 64 x 2^18 steps on (2,2) against (1,1),
+    each through jitted() (replayed from a CUDA graph on the card), the
+    state carried over 3 steps: grtpu's test_parallel.py gates."""
+    from grtpu_torch.parallel.mesh import Mesh
+    from grtpu_torch.parallel.sharded_fm import ShardedWfmBank, make_mesh
+
+    nchan, nsamp = MESH_CHANNELS, MESH_SAMPLES
+    banks = {(1, 1): ShardedWfmBank(Mesh([["cuda"]], ("time", "chan")),
+                                    nchannels=nchan),
+             (2, 2): ShardedWfmBank(make_mesh(4, ["cuda"] * 4),
+                                    nchannels=nchan)}
+    fns = {s: b.jitted() for s, b in banks.items()}
+    states = {s: b.init_state() for s, b in banks.items()}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ms = {s: [] for s in banks}
+    for step in range(3):
+        iq = torch.complex(
+            torch.randn(nchan, nsamp, generator=gen, device="cuda"),
+            torch.randn(nchan, nsamp, generator=gen, device="cuda"))
+        res = {}
+        for s in banks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[s] = fns[s](iq, states[s])
+            torch.cuda.synchronize()
+            ms[s].append((time.perf_counter() - t0) * 1e3)
+            states[s] = res[s][1]
+        (a2, s2, p2), (a1, s1, p1) = res[(2, 2)], res[(1, 1)]
+        da = float((a2 - a1).abs().max())
+        ds = float((s2 - s1).abs().max())
+        dp = abs(float(p2) - float(p1)) / abs(float(p1))
+        print(f"14b step {step}: audio {tuple(a2.shape)}, (2,2) vs (1,1) max "
+              f"|audio| diff {da:.3e} (tol 2e-4), power rel {dp:.3e} (tol "
+              f"1e-3), state {ds:.3e} (tol 2e-4)", flush=True)
+        if not (da <= 2e-4 and ds <= 2e-4 and dp <= 1e-3
+                and torch.isfinite(a2).all()):
+            fail(f"14b step {step}: the (2,2) bank left (1,1)'s bounds")
+    for s in banks:
+        print(f"14b ShardedWfmBank {s} jitted: ms a step {['%.3f' % v for v in ms[s]]} "
+              f"(eager, captured, replayed); last "
+              f"{nchan * nsamp / ms[s][-1] / 1e3:.2f} Msamples/s of input",
+              flush=True)
+
+
+def dryrun_close(torch, name, got, ref, atol=DRYRUN_ATOL):
+    got = got if isinstance(got, torch.Tensor) else torch.as_tensor(got)
+    ref = ref if isinstance(ref, torch.Tensor) else torch.as_tensor(ref)
+    if got.shape != ref.shape:
+        fail(f"14c {name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err = float((got.to(ref.device) - ref).abs().max()) if got.numel() else 0.0
+    print(f"14c {name}: matches single-device (max|diff|={err:.2e})",
+          flush=True)
+    if not err <= atol:
+        fail(f"14c {name}: max|diff| {err:.2e} > {atol}")
+
+
+def run_dryrun_sections(torch):
+    """14c: __graft_entry__.py::dryrun_multichip's sections on a mesh of 4
+    logical shards, at its own sizes, each against the single-device port
+    executor."""
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.parallel.mesh import Mesh
+    from grtpu_torch.runtime.mesh_executor import MeshExecutor, make_mesh
+    from grtpu_torch.models.fm import WfmRcv
+
+    n_devices = DRYRUN_SHARDS
+    mesh = make_mesh(n_devices, ["cuda"] * n_devices)
+    cmesh = Mesh(np.array(["cuda"] * n_devices, dtype=object), ("chan",))
+    r = np.random.RandomState(0)
+
+    def single(g, chunk, **kw):
+        return StreamExecutor(g, chunk_size=chunk, device="cuda", **kw)
+
+    def wfm_graph():
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pout = g.add_output(Port(torch.float32))
+        g.connect(pin, WfmRcv(64e3, 4), pout)
+        return g
+
+    nchan = max(2 * mesh.shape["chan"], 2)
+    chunk = 512 * mesh.shape["time"]
+    iq = (r.randn(nchan, 2 * chunk)
+          + 1j * r.randn(nchan, 2 * chunk)).astype(np.complex64)
+    audio = MeshExecutor(wfm_graph(), mesh, nchan, chunk_size=chunk).run(iq)
+    ref = torch.stack([single(wfm_graph(), chunk).run(iq[c])
+                       for c in range(nchan)])
+    dryrun_close(torch, f"WBFM Graph ({nchan}ch, time={mesh.shape['time']})",
+                 audio, ref)
+
+    from grtpu_torch.blocks.pfb import PfbChannelizer
+    from grtpu_torch.blocks.stream import VectorToStreams
+    from grtpu_torch.blocks.analog import QuadratureDemod
+
+    nsub = 4
+
+    def chan_graph():
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        ch = PfbChannelizer(nsub, taps_per_branch=8)
+        v2s = VectorToStreams(torch.complex64, nsub)
+        g.connect(pin, ch, v2s)
+        for s in range(nsub):
+            po = g.add_output(Port(torch.float32))
+            g.connect((v2s, s), QuadratureDemod(1.0), po)
+        return g
+
+    nc = mesh.shape["chan"]
+    iq2 = (r.randn(nc, chunk) + 1j * r.randn(nc, chunk)).astype(np.complex64)
+    outs = MeshExecutor(chan_graph(), mesh, nc, chunk_size=chunk).run(iq2)
+    refs = [single(chan_graph(), chunk).run(iq2[c]) for c in range(nc)]
+    for s in range(nsub):
+        dryrun_close(torch, f"channelizer sub {s}", outs[s],
+                     torch.stack([rr[s] for rr in refs]))
+
+    from grtpu_torch.digital.blocks import ClockRecoveryMMCC
+
+    sps = 4
+
+    def mm_graph():
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pout = g.add_output(Port(torch.complex64))
+        g.connect(pin, ClockRecoveryMMCC(sps, 0.25e-4, 0.5, 0.01), pout)
+        return g
+
+    syms = r.choice([-1.0, 1.0], size=(n_devices, 512 // sps + 8))
+    sig = np.stack([np.repeat(s, sps)[:512] for s in syms]).astype(
+        np.complex64)
+    y3 = MeshExecutor(mm_graph(), cmesh, n_devices, chunk_size=512).run(sig)
+    for c in range(n_devices):
+        dryrun_close(torch, f"clock-recovery ch{c}", y3[c],
+                     single(mm_graph(), 512).run(sig[c]))
+
+    from grtpu_torch.blocks.analog import Agc2
+    from grtpu_torch.blocks.pfb import PfbClockSync
+    from grtpu_torch.digital.blocks import ConstellationReceiver, FllBandEdge
+    from grtpu_torch.digital.constellation import psk_constellation
+    from grtpu_torch.utils import firdes
+
+    sps_d, ebw, nfilts = 4, 0.35, 32
+    mf_bank = firdes.root_raised_cosine(
+        nfilts, nfilts * sps_d, 1.0, ebw, 11 * sps_d * nfilts)
+
+    def demod_graph():
+        const = psk_constellation(4)
+        const.points = (np.asarray(const.points)
+                        * np.exp(1j * np.pi / 4)).astype(np.complex64)
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pout = g.add_output(Port(torch.uint8))
+        g.connect(pin,
+                  Agc2(attack_rate=1e-1, decay_rate=1e-2, reference=1.0,
+                       gain=1.0 / sps_d),
+                  FllBandEdge(sps_d, ebw, sps_d * 4, 0.035),
+                  PfbClockSync(sps_d, 0.045, mf_bank, nfilts=nfilts),
+                  ConstellationReceiver(const, 0.06),
+                  pout)
+        return g
+
+    rng = np.random.default_rng(7)
+    nsym = 600
+    rrc = firdes.root_raised_cosine(sps_d, sps_d, 1.0, ebw, 11 * sps_d)
+    bursts = []
+    for _ in range(n_devices):
+        pts = (np.asarray(psk_constellation(4).points)
+               * np.exp(1j * np.pi / 4))
+        up = np.zeros(nsym * sps_d, np.complex64)
+        up[::sps_d] = pts[rng.integers(0, 4, nsym)].astype(np.complex64)
+        bursts.append(np.convolve(up, rrc)[: nsym * sps_d]
+                      .astype(np.complex64))
+    sig_d = np.stack(bursts)
+    t0 = time.perf_counter()
+    y4 = MeshExecutor(demod_graph(), cmesh, n_devices, chunk_size=800).run(
+        sig_d)
+    t_mesh = time.perf_counter() - t0
+    for c in range(n_devices):
+        dryrun_close(torch, f"generic demod chain ch{c}", y4[c].float(),
+                     single(demod_graph(), 800).run(sig_d[c]).float())
+    print(f"14c generic demod chain (PfbClockSync eager, no device_loop): the "
+          f"mesh run took {t_mesh:.2f} s", flush=True)
+
+    from grtpu_torch.digital.ofdm import OfdmFrameSink, OfdmModem, OfdmReceiver
+
+    mdm = OfdmModem(fft_len=64, occupied=48, device="cuda")
+    nsym_o = 4
+
+    def ofdm_graph():
+        rx = OfdmReceiver(mdm, nsym_data=nsym_o, sync_type="pn")
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pb = g.add_output(Port(torch.uint8))
+        pf = g.add_output(Port(torch.uint8))
+        pc = g.add_output(Port(torch.complex64, mdm.occupied))
+        g.connect(pin, rx)
+        g.connect((rx, 0), OfdmFrameSink(mdm), pb)
+        g.connect((rx, 1), pf)
+        g.connect((rx, 2), pc)
+        return g, rx
+
+    span = (nsym_o + 2) * (mdm.fft_len + mdm.cp_len)
+    streams = []
+    for _ in range(n_devices):
+        bits = rng.integers(0, 2, nsym_o * mdm.occupied * 2).astype(np.uint8)
+        tx = mdm.modulate(bits)
+        streams.append(np.concatenate(
+            [np.zeros(100, np.complex64), tx,
+             np.zeros(2 * span - len(tx) - 100 + span, np.complex64)]
+        ).astype(np.complex64))
+    sig_o = np.stack([s[: 3 * span] for s in streams])
+    g_o, rx_o = ofdm_graph()
+    outs5 = MeshExecutor(g_o, cmesh, n_devices, chunk_size=2 * span,
+                         vr_chunks={rx_o: nsym_o}).run(sig_o)
+    for c in range(n_devices):
+        g_r, rx_r = ofdm_graph()
+        refs5 = single(g_r, 2 * span, vr_chunks={rx_r: nsym_o}).run(sig_o[c])
+        for j, label in enumerate(("bits", "flags", "chanest")):
+            a, b = outs5[j][c], refs5[j]
+            if not a.is_complex():
+                a, b = a.float(), b.float()
+            dryrun_close(torch, f"ofdm receiver ch{c} {label}", a, b)
+
+    mex6 = MeshExecutor(wfm_graph(), mesh, nchan, chunk_size=chunk)
+    dryrun_close(torch, "WBFM mesh device_loop",
+                 mex6.run(iq, device_loop=True), ref)
+
+    from grtpu_torch.ops.fir import fir_filter
+    from grtpu_torch.parallel import mesh as pm
+    from grtpu_torch.parallel.pipeline import fir_chain_pipeline, tap_parallel_fir
+
+    r2 = np.random.RandomState(1)
+    taps = r2.randn(n_devices, 9).astype(np.float32) / 9
+    pmesh = Mesh(np.array(["cuda"] * n_devices, dtype=object), ("stage",))
+    pipe = fir_chain_pipeline(pmesh, taps)
+    xin = torch.from_numpy(r2.randn(4, 32).astype(np.float32))
+    y = pipe.run(xin)
+    seq = xin.ravel().to("cuda")
+    for s in range(n_devices):
+        seq = fir_filter(torch.cat([seq.new_zeros(8), seq]), taps[s], 1)
+    dryrun_close(torch, f"{n_devices}-stage FIR pipeline (pp)", y.ravel(), seq)
+    tmesh = Mesh(np.array(["cuda"] * n_devices, dtype=object), ("tp",))
+    tl = r2.randn(n_devices, 8).astype(np.float32)
+    xr = torch.from_numpy(r2.randn(256 + n_devices * 8 - 1).astype(np.float32))
+    yt = tap_parallel_fir(xr, pm.shard(tl.reshape(-1), tmesh, pm.P("tp")),
+                          tmesh, "tp")
+    dryrun_close(torch, f"{n_devices}-way tap-parallel FIR (tp)", yt[(0,)],
+                 fir_filter(xr.to("cuda"), tl.reshape(-1), 1), atol=3e-3)
+
+    from grtpu_torch.trellis.fsm import FSM
+    from grtpu_torch.trellis.interleaver import Interleaver
+    from grtpu_torch.trellis.blocks import PcccDecoderCombined
+
+    FSM4 = FSM.from_convolutional(1, 2, [[0b101, 0b111]])
+    K_t = 64
+    il_t = Interleaver.random(K_t, seed=5)
+    pam = np.array([-3.0, -1.0, 1.0, 3.0], np.float32)
+    tbl = np.stack(np.meshgrid(pam, pam, indexing="ij"),
+                   axis=-1).reshape(-1).astype(np.float32)
+
+    def pccc_graph():
+        g = Graph()
+        pin = g.add_input(Port(torch.float32))
+        pout = g.add_output(Port(torch.int32))
+        dec = PcccDecoderCombined(FSM4, 0, -1, FSM4, 0, -1, il_t, K_t,
+                                  D=2, table=tbl, iterations=8,
+                                  complex_in=False)
+        g.connect(pin, dec, pout)
+        return g
+
+    rng_t = np.random.default_rng(11)
+    obs, sent = [], []
+    for _ in range(n_devices):
+        bits = rng_t.integers(0, 2, K_t).astype(np.int64)
+        o1 = FSM4.encode(bits)
+        o2 = FSM4.encode(bits[il_t.INTER])
+        pair = np.stack([pam[o1], pam[o2]], axis=-1).reshape(-1)
+        obs.append(pair + 0.05 * rng_t.standard_normal(2 * K_t))
+        sent.append(bits)
+    obs = np.stack(obs).astype(np.float32)
+    y7 = MeshExecutor(pccc_graph(), cmesh, n_devices,
+                      chunk_size=2 * K_t).run(obs)
+    for c in range(n_devices):
+        ref7 = single(pccc_graph(), 2 * K_t).run(obs[c])
+        dryrun_close(torch, f"pccc turbo bank ch{c}", y7[c].float(),
+                     ref7.float())
+        if not (y7[c].cpu().numpy() == sent[c]).all():
+            fail(f"14c pccc turbo bank ch{c}: decoded bits differ from sent")
+
+    from grtpu_torch.blocks.gengen import PackedToUnpacked
+    from grtpu_torch.digital.packet_blocks import PacketDecoder, PacketEncoder
+
+    plen = 64
+
+    def pkt_graph():
+        g = Graph()
+        pin = g.add_input(Port(torch.float32))
+        pout = g.add_output(Port(torch.float32))
+        g.connect(pin, PacketEncoder(type="float", payload_length=plen),
+                  PackedToUnpacked(1),
+                  PacketDecoder(type="float", payload_length=plen), pout)
+        return g
+
+    items = plen // 4
+    xp = r.randn(n_devices, 2 * items).astype(np.float32)
+    y8 = MeshExecutor(pkt_graph(), cmesh, n_devices, chunk_size=items).run(xp)
+    for c in range(n_devices):
+        dryrun_close(torch, f"packet VR chain ch{c}", y8[c],
+                     single(pkt_graph(), items).run(xp[c]))
+        if not np.allclose(y8[c][:items].cpu().numpy(), xp[c, :items],
+                           atol=1e-6):
+            fail(f"14c packet chain ch{c}: the payload did not round-trip")
+
+    import tempfile
+
+    nchan_c, chunk_c = 4, 1024
+    iqc = (r.randn(nchan_c, 4 * chunk_c)
+           + 1j * r.randn(nchan_c, 4 * chunk_c)).astype(np.complex64)
+    a = MeshExecutor(wfm_graph(), mesh_of(torch, (1, 2)), nchan_c,
+                     chunk_size=chunk_c)
+    a.run(iqc[:, :2 * chunk_c])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke14_") as td:
+        ck = str(Path(td) / "mesh_ckpt.npz")
+        a.save_checkpoint(ck)
+        y_ref = a.run(iqc[:, 2 * chunk_c:])
+        b = MeshExecutor(wfm_graph(), mesh_of(torch, (2, 2)), nchan_c,
+                         chunk_size=chunk_c)
+        b.load_checkpoint(ck)
+        y_res = b.run(iqc[:, 2 * chunk_c:])
+    dryrun_close(torch, "checkpoint (1,2) -> (2,2) mesh", y_res, y_ref)
+
+
+def run_time_sharded_mm(torch):
+    """14d: time_sharded_mm on 4 spans of one 2^20-sample stream (grtpu's
+    test_parallel.py:329- shape and gains), against the continuous
+    windowed loop on the card.  The spans and the continuous loop run the
+    same recursion (loops.clock_recovery_mm_ff_windowed, a batch of 4 rows
+    and of 1), so the agreement gate holds the splice; the recursion
+    itself is held on the card against its eager CPU run (the first
+    TSMM_PREFIX symbols, torch.equal), and against grtpu on the CPU by
+    tests/test_torch_parallel.py."""
+    from grtpu_torch.digital import loops
+    from grtpu_torch.parallel.mesh import Mesh
+    from grtpu_torch.parallel.timeshard_vr import time_sharded_mm
+
+    rng = np.random.RandomState(0)
+    sps, gm = 4, 0.175
+    go = 0.25 * gm * gm
+    syms = rng.choice([-1.0, 1.0], TSMM_SAMPLES // sps + 1)
+    x = np.repeat(syms, sps).astype(np.float32)[2:TSMM_SAMPLES + 2]
+    tmesh = Mesh(np.array(["cuda"] * TSMM_SPANS, dtype=object), ("time",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_sh, diag = time_sharded_mm(x, sps, go, gm, nshards=TSMM_SPANS,
+                                 overlap_syms=512, mesh=tmesh)
+    t_sh = time.perf_counter() - t0
+    W = 32
+    L = sps + 2 * W + loops.NTAPS
+    xp = torch.from_numpy(np.concatenate([np.zeros(W, np.float32), x,
+                                          np.zeros(L + sps, np.float32)]))
+    st = loops.mm_windowed_init_state(float(sps), 0.5, device="cuda")
+    st = loops.MMWinState(*(f.reshape(1) for f in st))
+    t0 = time.perf_counter()
+    y_ref = loops.clock_recovery_mm_ff_windowed(
+        xp[None].to("cuda"), st, sps, go, gm, W=W)[0][0].cpu()
+    t_ref = time.perf_counter() - t0
+    # the CPU's eager run of a prefix of the stream (each symbol reads
+    # only the samples of its own window)
+    n_pre = W + TSMM_PREFIX * sps + L
+    y_cpu = loops.clock_recovery_mm_ff_windowed(
+        xp[:n_pre], loops.mm_windowed_init_state(float(sps), 0.5,
+                                                 device="cpu"),
+        sps, go, gm, W=W)[0][:TSMM_PREFIX]
+    same = torch.equal(y_ref[:TSMM_PREFIX], y_cpu)
+    y_ref = y_ref.numpy()
+    n = min(len(y_ref), len(y_sh)) - 8
+    agree = float((np.sign(y_ref[200:n]) == np.sign(y_sh[200:n])).mean())
+    print(f"14d time_sharded_mm: {len(x)} samples, {TSMM_SPANS} spans as one "
+          f"batch {t_sh:.2f} s ({len(y_sh) / t_sh:.0f} symbols/s), the "
+          f"continuous loop {t_ref:.2f} s; splice offsets {diag['offsets']}, "
+          f"overlap agreement {['%.4f' % a for a in diag['agreement']]}; "
+          f"kept symbols agreeing with the continuous loop {agree:.5f} "
+          f"(gates 0.999); the loop's first {TSMM_PREFIX} symbols "
+          f"torch.equal to the CPU's eager run: {same}", flush=True)
+    if not (min(diag["agreement"]) > 0.999 and agree > 0.999):
+        fail("14d: the time-sharded M&M parted from the continuous loop")
+    if not same:
+        fail("14d: the windowed M&M on the card differs from the CPU's run")
+
+
+def run_phase14(torch, cf):
+    """Phase 14: the mesh executor and the parallel package on the card."""
+    t14 = time.perf_counter()
+    launches = run_mesh_executor(torch, cf)
+    run_sharded_bank(torch)
+    run_dryrun_sections(torch)
+    run_time_sharded_mm(torch)
+    secs = time.perf_counter() - t14
+    print(f"phase 14 path launches (each mesh's second run): "
+          f"{ {f'{s} {m}': c['fir_decim_mma_fwd'] for (s, m), c in launches.items()} }"
+          f" fir_decim_mma_fwd; phase 14 took {secs:.1f} s (limit "
+          f"{PHASE14_LIMIT_S:g} s)", flush=True)
+    if secs > PHASE14_LIMIT_S:
+        fail(f"phase 14 took {secs:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3861,7 +4468,12 @@ def main() -> int:
     # GUI sinks and the trace tools; launch counts zeroed before, read after
     run_phase13(torch, cf, config1)
 
-    # phase 14: report, for each kernel the case the main path launches most
+    # phase 14: the mesh executor and the parallel package: config #1's
+    # 64-channel bank over meshes of logical shards; launch counts zeroed
+    # before each mesh run and read after it
+    run_phase14(torch, cf)
+
+    # phase 15: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),

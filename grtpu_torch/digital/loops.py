@@ -28,7 +28,9 @@ Three M&M forms, as in grtpu:
   * exact (``clock_recovery_mm_ff/cc``): variable rate, ``max_out`` symbol
     slots with a valid count, the state frozen past the end of the input;
   * windowed (``clock_recovery_mm_{ff,cc}_windowed``): one symbol per
-    nominal period, the timing drift carried as ``rel``;
+    nominal period, the timing drift carried as ``rel``; one stream or a
+    batch, the symbol loop through ``step_scan`` (graph replays on the
+    card);
   * chunked (``clock_recovery_mm_{ff,cc}_chunked``): whole chunks of symbols
     at once, the loop trajectory closed in cumsum form, two fixed-point
     sweeps, samples and taps rounded to bfloat16 as grtpu's one-hot matmuls
@@ -46,7 +48,8 @@ import numpy as np
 import torch
 
 from grtpu_torch.ops import dsp
-from grtpu_torch.ops.mmse_interp import NSTEPS, NTAPS, bank_on, interpolate_point
+from grtpu_torch.ops.mmse_interp import (NSTEPS, NTAPS, bank_on,
+                                         interpolate_point, scan_dot)
 from grtpu_torch.utils.device import resolve
 
 
@@ -551,21 +554,23 @@ def _window_rows(x: torch.Tensor, sps: float, W: int, width: int):
 
     Symbol t's row starts at I_t = floor(t*P/Q) (P/Q = rationalized sps):
     rows[t, k] = x[I_t + k] (zero past the end of x), L = ceil(P/Q) + 2W +
-    width.  x carries W leading history samples.  One gather.
+    width.  x carries W leading history samples; leading axes of x are
+    batch axes (rows (..., T, L)).  One gather.
 
     Returns (rows, d, T, L) with d[t] = I_{t+1} - I_t (float32 tensor), the
     per-symbol nominal integer-grid advance the loop recursion consumes."""
     P, Q = rationalize_sps(sps)
     L = -(-P // Q) + 2 * W + width
-    Tq = (x.shape[0] - L - (((Q - 1) * P) // Q)) // P + 1
+    Tq = (x.shape[-1] - L - (((Q - 1) * P) // Q)) // P + 1
     T = Q * Tq
     grid = (np.arange(T + 1, dtype=np.int64) * P) // Q
     need = int(grid[T - 1]) + L if T > 0 else 0
-    xp = torch.cat([x, x.new_zeros((max(0, need - x.shape[0]),))])
+    xp = torch.cat([x, x.new_zeros(x.shape[:-1]
+                                   + (max(0, need - x.shape[-1]),))], dim=-1)
     idx = (torch.from_numpy(grid[:-1]).to(x.device)[:, None]
            + torch.arange(L, device=x.device)[None, :])
     d = torch.from_numpy((grid[1:] - grid[:-1]).astype(np.float32)).to(x.device)
-    return xp[idx], d, T, L
+    return xp[..., idx], d, T, L
 
 
 def _mm_window_rows(x: torch.Tensor, sps: int, W: int):
@@ -577,32 +582,55 @@ def _mm_window_rows(x: torch.Tensor, sps: int, W: int):
 
 def _mm_windowed(x, state, sps, gain_omega, gain_mu, omega_relative_limit,
                  W):
+    """The windowed M&M recursion over one stream x (n,) with state fields
+    0-d, or over a batch of streams, one a row of x (B, n), each with its
+    own state (the fields (B,)): the arithmetic is elementwise over the
+    rows, so each row equals its stream run alone.  The symbol loop runs
+    through ``runtime.step_graph.step_scan`` (on the card, UNROLL symbols a
+    CUDA graph replay)."""
+    from grtpu_torch.runtime.step_graph import step_scan
+
     if W is None:
         raise ValueError("W must be set")
+    if x.dim() == 1:
+        y, st = _mm_windowed(x[None], MMWinState(*(f.reshape(1)
+                                                   for f in state)),
+                             sps, gain_omega, gain_mu, omega_relative_limit, W)
+        return y[0], MMWinState(*(f.reshape(f0.shape)
+                                  for f, f0 in zip(st, state)))
     P, Q = rationalize_sps(sps)
     sps_nom = P / Q
     om_lim = sps_nom * omega_relative_limit
     lo, hi = sps_nom - om_lim, sps_nom + om_lim
     rows, d, T, L = _window_rows(x, sps, W, NTAPS)
-    bank = bank_on(x.device)
-    ar = torch.arange(NTAPS, device=x.device)
-    mu, omega, rel, last = state
-    ys = []
-    for t in range(T):
+    dev = x.device
+    bank = bank_on(dev)
+    ar = torch.arange(NTAPS, device=dev)
+    B = x.shape[0]
+    # each step's rows, with the nominal grid's advance d[t] as one more
+    # column (small integers: exact in float32)
+    xs = torch.cat([rows.transpose(0, 1),
+                    d.to(x.dtype)[:, None, None].expand(T, B, 1)], dim=2)
+
+    def step(st, xt):
+        mu, omega, rel, last = st
         p = torch.round(rel).long() + W
-        samp = interpolate_point(rows[t][p + ar], mu, bank)
+        win = torch.gather(xt[:, :L], 1, p[:, None] + ar[None, :])
+        taps = torch.index_select(bank, 0, torch.round(mu * NSTEPS).long())
+        samp = scan_dot(win, taps)
         err = torch.clamp(_ted(last, samp), -1.0, 1.0)
         omega = torch.clamp(omega + gain_omega * err, lo, hi)
-        step = mu + omega + gain_mu * err
-        adv = torch.floor(step)
+        step_ = mu + omega + gain_mu * err
+        adv = torch.floor(step_)
         # the loop pointer advances by adv samples; the nominal grid the
         # rows follow advances by d[t]: the drift moves by the difference
-        rel = torch.clamp(rel + adv - d[t], float(-W + 1), float(W - 1))
-        mu = step - adv
-        last = samp
-        ys.append(samp)
-    y = torch.stack(ys) if ys else x.new_zeros((0,))
-    return y, MMWinState(mu, omega, rel, last)
+        rel = torch.clamp(rel + adv - xt[:, L].real, float(-W + 1),
+                          float(W - 1))
+        return (step_ - adv, omega, rel, samp), samp
+
+    out = torch.empty((T, B), dtype=x.dtype, device=dev)
+    st = step_scan(step, tuple(state), xs, out) if T else tuple(state)
+    return out.transpose(0, 1), MMWinState(*st)
 
 
 def clock_recovery_mm_ff_windowed(
@@ -612,7 +640,11 @@ def clock_recovery_mm_ff_windowed(
     """Fixed-rate M&M at integer OR fractional samples/symbol: rows ride
     the floor grid of the rationalized nominal clock, so ~T*sps + 2W + NTAPS
     samples (incl. W history) -> exactly (T,) symbols.  Identical to
-    clock_recovery_mm_ff while the timing drift stays inside +-W."""
+    clock_recovery_mm_ff while the timing drift stays inside +-W.
+
+    x (B, n) runs B independent streams as a batch (grtpu vmaps the
+    function), each state field (B,): (B, T) symbols, each row equal to
+    its stream run alone."""
     return _mm_windowed(x, state, sps, gain_omega, gain_mu,
                         omega_relative_limit, W)
 
@@ -622,7 +654,7 @@ def clock_recovery_mm_cc_windowed(
         gain_omega: float, gain_mu: float,
         omega_relative_limit: float = 0.001, W: int = 32):
     """Complex windowed M&M (conjugated-decision TED, as
-    clock_recovery_mm_cc)."""
+    clock_recovery_mm_cc); x (B, n) runs a batch, as the real form."""
     return _mm_windowed(x, state, sps, gain_omega, gain_mu,
                         omega_relative_limit, W)
 

@@ -11,14 +11,20 @@ unchanged one loads at once.  Nothing here runs when the module is imported:
 :func:`library` builds on its first call.
 
 :func:`host_library` builds the host I/O runtime (``grtpu_torch/io/native``)
-the same way, with the host C++ compiler, into the same directory.
+the same way, with the host C++ compiler, into the same directory.  A
+library built with ``-march=native`` runs only on CPUs like the one that
+built it, so its key also holds that CPU (:func:`cpu_identity`): a
+``build/`` directory copied to another machine then builds the library
+anew there and never loads one made for another CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,13 +53,36 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
+@functools.lru_cache(maxsize=1)
+def cpu_identity() -> str:
+    """The CPU this process runs on, as ``-march=native`` sees it: the
+    machine, and the model name and feature flags of the first processor
+    in ``/proc/cpuinfo`` (where there is none, what ``platform`` says)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return "|".join((platform.machine(),
+                     fields.get("model name", platform.processor()),
+                     fields.get("flags", fields.get("Features", ""))))
+
+
 def hashed_path(stem: str, files, flags) -> Path:
     """The library path under ``BUILD_DIR`` for these source files and
-    flags: an edited file or flag gives another path."""
+    flags: an edited file or flag gives another path, and so, for flags
+    with ``-march=native``, does another CPU."""
     h = hashlib.sha256()
     for f in files:
         h.update(Path(f).read_bytes())
     h.update(" ".join(flags).encode())
+    if "-march=native" in flags:
+        h.update(cpu_identity().encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 

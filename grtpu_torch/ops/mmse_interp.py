@@ -84,18 +84,18 @@ def _fused_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_k a[k] * b[k] from 0 in order, each product fused into the
     running float32 sum: exact in float64, one rounding per term."""
     p = a.double() * b.double()
-    acc = p[0].float()
-    for k in range(1, p.shape[0]):
-        acc = (acc.double() + p[k]).float()
+    acc = p[..., 0].float()
+    for k in range(1, p.shape[-1]):
+        acc = (acc.double() + p[..., k]).float()
     return acc
 
 
 def _ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_k a[k] * b[k] from 0 in order, rounding each product."""
     p = a * b
-    acc = p[0]
-    for k in range(1, p.shape[0]):
-        acc = acc + p[k]
+    acc = p[..., 0]
+    for k in range(1, p.shape[-1]):
+        acc = acc + p[..., k]
     return acc
 
 
@@ -103,7 +103,8 @@ def scan_dot(x_window: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """sum_k x_window[k] * taps[k] (real taps) as XLA's CPU backend sums it
     for grtpu inside a scan: in order, each product fused into the running
     sum — except the real part of a complex window, whose products are
-    rounded first."""
+    rounded first.  The sum runs over the last axis; leading axes are batch
+    axes (each row summed as a window alone would be)."""
     if x_window.is_complex():
         return torch.complex(_ordered_dot(x_window.real, taps),
                              _fused_dot(x_window.imag, taps))

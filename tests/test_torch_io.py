@@ -357,6 +357,38 @@ def test_native_build_is_keyed_and_outside_the_package(tmp_path):
     assert not [p for p in after if p.suffix == ".so"]
 
 
+def test_native_build_is_keyed_on_the_cpu(tmp_path, monkeypatch):
+    """A library built with -march=native is keyed on the CPU too: another
+    CPU gives another path, so a build directory copied from another
+    machine builds the library anew and never loads the one made there.
+    The CUDA libraries (no -march=native) keep their keys."""
+    from grtpu_torch.ops import _build
+
+    assert "-march=native" in tnative.FLAGS
+    here = _build.cpu_identity()
+    assert here and here == _build.cpu_identity()
+    ours = tnative.library_path()
+    cuda_keys = _build.library_paths()
+    monkeypatch.setattr(_build, "cpu_identity", lambda: here + "|another")
+    assert tnative.library_path() != ours
+    assert _build.library_paths() == cuda_keys
+
+    src = tmp_path / "probe.cc"
+    src.write_text('extern "C" int probe() { return 7; }\n')
+    flags = ("-O1", "-march=native", "-shared", "-fPIC")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "cpu_identity", lambda: "cpu-a")
+    built_a = _build.host_library("probe", (src,), flags)
+    if built_a is None:
+        pytest.skip("no host C++ compiler")
+    monkeypatch.setattr(_build, "cpu_identity", lambda: "cpu-b")
+    assert _build.hashed_path("probe", (src,), flags) != built_a
+    built_b = _build.host_library("probe", (src,), flags)
+    assert built_b != built_a and built_b.exists() and built_a.exists()
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [built_a.name, built_b.name])
+
+
 def test_ring_roundtrip_and_wraparound():
     need_native()
     rb = tnative.RingBuffer(1 << 16)

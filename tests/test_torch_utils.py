@@ -169,7 +169,10 @@ PORTED_WHOLE = ["ops.fir", "ops.dsp", "ops.pfb", "ops.mmse_interp",
                 "grc.registry", "grc.flowgraph", "grc.grcxml",
                 "gui",
                 "utils.trace", "utils.plot", "utils.prefs", "utils.scaffold",
-                "utils.filter_design"]
+                "utils.filter_design",
+                "runtime.mesh_executor", "parallel.halo", "parallel.pipeline",
+                "parallel.sharded_fm", "parallel.multihost",
+                "parallel.timeshard_vr"]
 # grtpu keeps the matmul mode in a module global; the port takes it per call
 NOT_PORTED_BY_DESIGN = {"ops.fir": {"set_precision"}}
 
