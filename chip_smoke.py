@@ -244,7 +244,38 @@ Phases (each raises on failure; nothing is caught):
         spans and the continuous loop run one recursion, so that gate holds
         the splice; the loop's first 4,096 symbols on the card must be
         torch.equal to the CPU's eager run of the same stream.
- 15. Print one JSON line of per-kernel results (the eight kernels) and,
+ 15. grtpu's examples, ported (grtpu_torch/examples), each run through its
+     main() as a user runs it (stream_server through serve()), on the card
+     at the example's own sizes; the phase must end within 150 s:
+     a. trellis_ber's five sweeps at -K 1024 -r 32 -i 10 -e 10 (the
+        example's defaults at 10 dB), launch counts zeroed before each and
+        read after: tcm and eq must launch viterbi_fwd (their (32, 1024, O)
+        metrics in one call) and print the error counts of the CPU's run
+        of the same arguments; sccc, pccc and turbo-eq must equal the CPU's
+        on -r 2.  Wall s and symbols/s;
+     b. wfm_demod on phase 4's station, 2^22 samples at 256 kS/s from a
+        temporary .cfile, to a WAV: its audio SNR against the de-emphasized
+        tone > 30 dB (the WAV's scale fitted); Msamples/s of input;
+     c. stream_server's serve() on 2^20 samples over localhost UDP at its
+        default chunk (8,192; the sender at most 2 chunks ahead of the
+        audio): every sample served, the audio torch.equal to an in-memory
+        run of the same graph on the card; Msamples/s;
+     d. benchmark_tx_rx at its defaults (10 packets of 64 bytes, 15 dB) over
+        gmsk, dbpsk and 4fsk: every line equal to the CPU's run, every
+        packet intact over gmsk and dbpsk (grtpu's own example loses 4fsk's
+        packet 9 at 15 dB, and so does the CPU run); packets/s;
+     e. benchmark_ofdm, 4 frames flat and --multipath (every frame under 2%
+        BER), and --curve (every frame found by the stream, burst and
+        streaming BER < 0.02 from 16 dB); frames/s;
+     f. digital_bert at 10 dB, cut to one chunk of 4,096 bits (its exact
+        chain steps one symbol at a time; the default 4 x 2^14 bits would
+        take 5-9 minutes, see BERT_ARGS): BER < 0.05 and equal to the
+        CPU's run; symbols/s on both;
+     g. howto_write_a_block's QA on the card; its tag block under step(),
+        run(device_loop=True) and a 2-channel MeshExecutor (both modes):
+        offsets [1, 4, 7] in every mode.
+     Prints each example's wall s.
+ 16. Print one JSON line of per-kernel results (the eight kernels) and,
      last, the device line.
 
 Every executor path of phases 4-11 runs twice eagerly and twice under
@@ -791,9 +822,7 @@ def run_main_path(torch, cf, headline):
     (kernel path, then the plain path), the WBFM bank's audio FIR through
     fir_decim and the headline workload through fir_cascade.  Launch counts
     cover exactly these calls."""
-    from grtpu_torch import Graph, StreamExecutor
-    from grtpu_torch.runtime.block import Port
-    from grtpu_torch.models.fm import FmDeemph
+    from grtpu_torch import StreamExecutor
 
     t = np.arange(MAIN_SAMPLES) / QUAD_RATE
     msg = (0.5 * np.sin(2 * np.pi * 1000.0 * t)).astype(np.float32)
@@ -844,12 +873,7 @@ def run_main_path(torch, cf, headline):
     if y.shape != (MAIN_SAMPLES // AUDIO_DECIM,) or not np.isfinite(y).all():
         fail(f"WBFM output shape {y.shape} or non-finite values")
     # recovered-audio SNR against the de-emphasized message
-    g = Graph()
-    p = g.add_input(Port(torch.float32))
-    o = g.add_output(Port(torch.float32))
-    g.connect(p, FmDeemph(QUAD_RATE / AUDIO_DECIM, 75e-6), o)
-    ref = StreamExecutor(g, chunk_size=8192, device="cuda").run(
-        msg[::AUDIO_DECIM]).cpu().numpy()
+    ref = deemphasized(torch, msg)
     settle = 512
     r, e = align(ref[settle:-settle], y[settle:-settle])
     s = snr_db(r.astype(np.float64), e.astype(np.float64))
@@ -4342,6 +4366,328 @@ def run_phase14(torch, cf):
         fail(f"phase 14 took {secs:.1f} s")
 
 
+# ------------------------------------ phase 15 (grtpu's examples, ported)
+PHASE15_LIMIT_S = 150.0
+TRELLIS_SCHEMES = ("tcm", "eq", "sccc", "pccc", "turbo-eq")
+# trellis_ber's own defaults (K 1024, 32 packets, 10 iterations) at 10 dB
+TRELLIS_ARGS = ["-K", "1024", "-r", "32", "-i", "10", "-e", "10"]
+TRELLIS_CPU_REPS = "2"          # the turbo schemes are held to the CPU on 2
+WFM_DEMOD_SAMPLES = 1 << 22     # phase 4's ~16 s of one station at 256 kS/s
+EX_SERVICE_SAMPLES = 1 << 20    # stream_server's input at its default chunk
+EX_SERVICE_CHUNK = 8192
+EX_SERVICE_AHEAD = 2            # chunks the sender may run ahead of the audio
+TXRX_PACKETS = 10               # benchmark_tx_rx's defaults: 10 packets of
+                                # 64 bytes at 15 dB
+OFDM_EXAMPLE_FRAMES = 4         # benchmark_ofdm's default
+# digital_bert, cut from its default 4 chunks of 2^14 bits: its exact
+# receive chain steps its loops one symbol at a time (117.7-232.8 symbols/s
+# on an NVIDIA H100 80GB HBM3 at 700 W, phases 9b and 15f), so the default's
+# 65,536 symbols would take 5-9 minutes and one chunk of 2^14 70-140 s of
+# the phase's 150.  The chunk count and the bits a chunk are cut; the
+# modulation (BPSK, M 2) and sps 4 are the example's.
+BERT_ARGS = ["--snr", "10", "-n", "4096", "--chunks", "1"]
+BERT_GATE = 0.05                # tests/test_apps.py's BER gate at 10 dB
+
+
+def run_example(fn, args):
+    """``fn(args)``, its printed lines captured; returns (lines, wall s).
+    The examples print numbers read back from the card, so their wall time
+    ends after the card's work."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fn(args)
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def with_option(args, flag, value):
+    args = list(args)
+    args[args.index(flag) + 1] = value
+    return args
+
+
+def deemphasized(torch, msg):
+    """The reference of the WBFM audio: ``msg`` at the audio rate through
+    the receiver's de-emphasis, on the card."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.models.fm import FmDeemph
+
+    g = chain_graph(torch, [FmDeemph(QUAD_RATE / AUDIO_DECIM, 75e-6)],
+                    torch.float32)
+    return StreamExecutor(g, chunk_size=8192, device="cuda").run(
+        msg[::AUDIO_DECIM]).cpu().numpy()
+
+
+def run_trellis_examples(torch, cf):
+    """15a: trellis_ber's five sweeps on the card at the example's sizes;
+    tcm and eq held to the CPU's run of the same arguments, the turbo
+    schemes on 2 packets."""
+    from grtpu_torch.examples import trellis_ber
+
+    for scheme in TRELLIS_SCHEMES:
+        args = [scheme] + TRELLIS_ARGS
+        zero_launches(cf)
+        lines, secs = run_example(trellis_ber.main, args)
+        launched = {k: v for k, v in cf.launches.items() if v}
+        symbols = int(lines[-1].split("dB")[1].split("symbols")[0])
+        print(f"15a trellis_ber {' '.join(args)}: {lines[-1]} | "
+              f"{secs:.3f} s = {symbols / secs:.0f} symbols/s on the card; "
+              f"hand kernel launches {launched}", flush=True)
+        if scheme in ("tcm", "eq"):
+            if not launched.get("viterbi_fwd"):
+                fail(f"15a: trellis_ber {scheme} did not launch viterbi_fwd")
+            card = lines
+        else:
+            args = with_option(args, "-r", TRELLIS_CPU_REPS)
+            card, _ = run_example(trellis_ber.main, args)
+        cpu, cpu_secs = run_example(trellis_ber.main, args + ["--device", "cpu"])
+        same = card == cpu
+        print(f"15a trellis_ber {' '.join(args)} on the CPU ({cpu_secs:.3f} "
+              f"s): {cpu[-1]}; the card's counts equal: {same}", flush=True)
+        if not same:
+            fail(f"15a: trellis_ber {scheme} on the card {card} differs from "
+                 f"the CPU {cpu}")
+
+
+def run_wfm_demod_example(torch, cf, tmp):
+    """15b: wfm_demod on phase 4's ~16 s of one station, from a .cfile."""
+    from grtpu_torch.examples import wfm_demod
+    from grtpu_torch.io.file import load_wav
+
+    cap, wav = tmp / "station.cfile", tmp / "station.wav"
+    service_signal(WFM_DEMOD_SAMPLES).tofile(cap)
+    zero_launches(cf)
+    lines, secs = run_example(wfm_demod.main, [str(cap), str(wav)])
+    launched = {k: v for k, v in cf.launches.items() if v}
+    rate, pcm = load_wav(str(wav))
+    audio = pcm[:, 0].astype(np.float64)
+    t = np.arange(WFM_DEMOD_SAMPLES) / QUAD_RATE
+    ref = deemphasized(torch, (0.5 * np.sin(2 * np.pi * 1000.0 * t)).astype(
+        np.float32)).astype(np.float64)
+    settle = 512
+    r, e = align(ref[settle:-settle], audio[settle:-settle])
+    s = snr_db(r, e * (np.dot(r, e) / np.dot(e, e)))   # the WAV is scaled
+    print(f"15b wfm_demod: {' | '.join(lines)} | {secs:.3f} s = "
+          f"{WFM_DEMOD_SAMPLES / secs / 1e6:.2f} Msamples/s of input (file "
+          f"read, WBFM, WAV written); WAV {rate} Hz, {len(audio)} samples, "
+          f"SNR against the tone {s:.2f} dB (gate 30 dB); hand kernel "
+          f"launches {launched} (WfmRcv impl auto: mxu)", flush=True)
+    if rate != int(QUAD_RATE / AUDIO_DECIM) or \
+            len(audio) != WFM_DEMOD_SAMPLES // AUDIO_DECIM or not s > 30.0:
+        fail(f"15b: wfm_demod's WAV: {rate} Hz, {len(audio)} samples, "
+             f"{s:.2f} dB")
+
+
+def run_stream_server_example(torch, cf):
+    """15c: stream_server's serve() on 2^20 samples over localhost UDP at
+    its default chunk; the audio equal to an in-memory run of its graph."""
+    import socket
+    import threading
+
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.examples import stream_server
+    from grtpu_torch.io import native
+    from grtpu_torch.io.udp import UdpSink, UdpSource
+    from grtpu_torch.models.fm import WfmRcv
+
+    x = service_signal(EX_SERVICE_SAMPLES, seed=14)
+    nchunks = EX_SERVICE_SAMPLES // EX_SERVICE_CHUNK
+    per = EX_SERVICE_CHUNK // AUDIO_DECIM
+    g = chain_graph(torch, [WfmRcv(QUAD_RATE, AUDIO_DECIM)], torch.complex64,
+                    [torch.float32])
+    ref = StreamExecutor(g, chunk_size=EX_SERVICE_CHUNK, device="cuda").run(
+        torch.from_numpy(x).to("cuda")).cpu()
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    in_port = probe.getsockname()[1]
+    probe.close()
+    audio_rx = UdpSource("127.0.0.1", 0, np.float32, timeout=30.0)
+    audio_rx.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    ready, result = threading.Event(), {}
+    credits = threading.Semaphore(EX_SERVICE_AHEAD)
+
+    def server():
+        result["counts"] = stream_server.serve(
+            in_port, "127.0.0.1", audio_rx.sock.getsockname()[1],
+            in_host="127.0.0.1", on_ready=ready.set)
+
+    def send():
+        tx = UdpSink("127.0.0.1", in_port, np.complex64)
+        try:
+            for c in range(nchunks):
+                if not credits.acquire(timeout=30):
+                    return
+                tx.write_items(x[c * EX_SERVICE_CHUNK:
+                                 (c + 1) * EX_SERVICE_CHUNK])
+        finally:
+            tx.close()          # the zero-length datagram ends the service
+
+    threads = [threading.Thread(target=server), threading.Thread(target=send)]
+    threads[0].start()
+    if not ready.wait(timeout=120):
+        fail("15c: the service never became ready")
+    zero_launches(cf)
+    t0 = time.perf_counter()
+    threads[1].start()
+    got = []
+    for _ in range(nchunks):
+        a = audio_rx.read_items(per)
+        if a is None:
+            break
+        got.append(a)
+        credits.release()
+    for t in threads:
+        t.join(timeout=60)
+    secs = time.perf_counter() - t0
+    audio_rx.close()
+    launched = {k: v for k, v in cf.launches.items() if v}
+    if any(t.is_alive() for t in threads):
+        fail("15c: a thread of the service did not finish")
+    audio = torch.from_numpy(np.concatenate(got)) if got else None
+    equal = audio is not None and torch.equal(audio, ref)
+    print(f"15c stream_server: served {result.get('counts')}, "
+          f"{EX_SERVICE_SAMPLES / secs / 1e6:.2f} Msamples/s of input (chunk "
+          f"{EX_SERVICE_CHUNK}, sender {EX_SERVICE_AHEAD} chunks ahead at "
+          f"most, ingest on the native ring: {native.available()}); audio "
+          f"torch.equal to the in-memory run: {equal}; hand kernel launches "
+          f"{launched}", flush=True)
+    if result.get("counts") != (EX_SERVICE_SAMPLES, EX_SERVICE_SAMPLES
+                                // AUDIO_DECIM) or not equal:
+        fail("15c: the service lost samples or changed the audio")
+
+
+def run_tx_rx_examples(torch):
+    """15d: benchmark_tx_rx's packet loop at its defaults, three modems."""
+    from grtpu_torch.examples import benchmark_tx_rx
+
+    for mod in ("gmsk", "dbpsk", "4fsk"):
+        args = ["--modulation", mod]
+        card, secs = run_example(benchmark_tx_rx.main, args)
+        cpu, cpu_secs = run_example(benchmark_tx_rx.main,
+                                    args + ["--device", "cpu"])
+        intact = int(card[-1].split("/")[0])
+        print(f"15d benchmark_tx_rx {mod}: {card[-1]} | {secs:.3f} s = "
+              f"{TXRX_PACKETS / secs:.2f} packets/s on the card "
+              f"({cpu_secs:.3f} s on the CPU); every line equal to the CPU "
+              f"run's: {card == cpu}", flush=True)
+        # grtpu's own example loses 4fsk's packet 9 at 15 dB: the 4FSK
+        # gate is the CPU run, which the parity tests hold to grtpu's
+        if card != cpu or (mod != "4fsk" and intact != TXRX_PACKETS):
+            fail(f"15d: benchmark_tx_rx {mod}: {card} (CPU {cpu})")
+
+
+def run_ofdm_examples(torch):
+    """15e: benchmark_ofdm's frames, flat and multipath, and its curve."""
+    from grtpu_torch.examples import benchmark_ofdm
+
+    for label, args in (("flat", []), ("multipath", ["--multipath"])):
+        lines, secs = run_example(benchmark_ofdm.main, args)
+        ok = int(lines[-1].split("/")[0])
+        print(f"15e benchmark_ofdm {label}: {lines[-1]} | {secs:.3f} s = "
+              f"{OFDM_EXAMPLE_FRAMES / secs:.2f} frames/s", flush=True)
+        for line in lines[:-2]:
+            print(f"    {line}")
+        if ok != OFDM_EXAMPLE_FRAMES:
+            fail(f"15e: benchmark_ofdm {label}: {lines[-1]}")
+    lines, secs = run_example(benchmark_ofdm.main, ["--curve"])
+    points = [json.loads(line) for line in lines]
+    frames = len(points) * OFDM_EXAMPLE_FRAMES * 2
+    print(f"15e benchmark_ofdm --curve: {secs:.3f} s, {frames / secs:.2f} "
+          f"frames/s (each frame through the burst modem and the streaming "
+          f"graph)", flush=True)
+    for p in points:
+        print(f"    {json.dumps(p)}")
+    bad = [p for p in points if p["frames_streaming"] != OFDM_EXAMPLE_FRAMES
+           or (p["snr_db"] >= 16 and max(p["ber_burst"],
+                                         p["ber_streaming"]) >= 0.02)]
+    if len(points) != 5 or bad:
+        fail(f"15e: benchmark_ofdm --curve: {bad or points}")
+
+
+def run_bert_example(torch):
+    """15f: digital_bert at 10 dB on the card and on the CPU (cut above)."""
+    from grtpu_torch.examples import digital_bert
+
+    card, secs = run_example(digital_bert.main, BERT_ARGS)
+    cpu, cpu_secs = run_example(digital_bert.main, BERT_ARGS + ["--device",
+                                                                "cpu"])
+    nsym = int(BERT_ARGS[BERT_ARGS.index("-n") + 1]) * int(
+        BERT_ARGS[BERT_ARGS.index("--chunks") + 1])
+    ber, ber_cpu = (float(lines[-1].rsplit("BER:", 1)[1])
+                    for lines in (card, cpu))
+    print(f"15f digital_bert {' '.join(BERT_ARGS)} (cut from 4 chunks of "
+          f"16384 bits): {card[-1]} | {secs:.3f} s = {nsym / secs:.1f} "
+          f"symbols/s on the card; CPU ({cpu_secs:.3f} s = "
+          f"{nsym / cpu_secs:.1f} symbols/s): {cpu[-1]}", flush=True)
+    if not (ber < BERT_GATE and ber == ber_cpu):
+        fail(f"15f: digital_bert BER {ber} (CPU {ber_cpu}, gate {BERT_GATE})")
+
+
+def run_howto_example(torch):
+    """15g: howto_write_a_block's QA on the card, and its tag block under
+    run(device_loop=True) and on a 2-channel MeshExecutor."""
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.blocks.gengen import VectorSink
+    from grtpu_torch.examples import howto_write_a_block as howto
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.runtime.mesh_executor import MeshExecutor
+
+    lines, secs = run_example(howto.main, [])
+    print(f"15g howto_write_a_block ({secs:.3f} s): {' | '.join(lines)}",
+          flush=True)
+    if len(lines) != 3 or not all(": OK" in line for line in lines):
+        fail(f"15g: howto_write_a_block's QA: {lines}")
+    src = np.array([0, 2, 0, 0, 3, 3, 0, 2], np.float32)
+    offsets = {}
+    for mode in ("step", "device_loop", "mesh", "mesh device_loop"):
+        g = Graph()
+        pin = g.add_input(Port(torch.float32))
+        s = VectorSink(dtype=torch.float32)
+        g.connect(pin, howto.ThresholdTagFF(1.0), s)
+        if mode.startswith("mesh"):
+            ex = MeshExecutor(g, mesh_of(torch, (1, 2)), 2, chunk_size=4)
+            ex.run(np.stack([src, src]), device_loop="device_loop" in mode)
+            offsets[mode] = [sorted(t.offset for t in ex.sink_tags_chan(
+                s.name, c)) for c in range(2)]
+        else:
+            ex = StreamExecutor(g, chunk_size=4, device="cuda")
+            ex.run(src, device_loop=mode == "device_loop")
+            offsets[mode] = [sorted(t.offset for t in ex.sink_tags[s.name])]
+    print(f"15g ThresholdTagFF offsets (chunk 4): {offsets}", flush=True)
+    if any(o != [1, 4, 7] for v in offsets.values() for o in v):
+        fail(f"15g: tag offsets {offsets}")
+
+
+def run_phase15(torch, cf):
+    """Phase 15: grtpu's examples, ported, on the card."""
+    import tempfile
+
+    t15 = time.perf_counter()
+    marks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke15_") as d:
+        for name, fn in (
+                ("trellis_ber", lambda: run_trellis_examples(torch, cf)),
+                ("wfm_demod", lambda: run_wfm_demod_example(torch, cf,
+                                                            Path(d))),
+                ("stream_server", lambda: run_stream_server_example(torch,
+                                                                    cf)),
+                ("benchmark_tx_rx", lambda: run_tx_rx_examples(torch)),
+                ("benchmark_ofdm", lambda: run_ofdm_examples(torch)),
+                ("digital_bert", lambda: run_bert_example(torch)),
+                ("howto_write_a_block", lambda: run_howto_example(torch))):
+            t0 = time.perf_counter()
+            fn()
+            marks[name] = round(time.perf_counter() - t0, 3)
+    secs = time.perf_counter() - t15
+    print(f"phase 15 wall s by example: {marks}; phase 15 took {secs:.1f} s "
+          f"(limit {PHASE15_LIMIT_S:g} s)", flush=True)
+    if secs > PHASE15_LIMIT_S:
+        fail(f"phase 15 took {secs:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4473,7 +4819,11 @@ def main() -> int:
     # before each mesh run and read after it
     run_phase14(torch, cf)
 
-    # phase 15: report, for each kernel the case the main path launches most
+    # phase 15: grtpu's examples, ported, each run through its main() (or
+    # serve()) on the card as a user runs it
+    run_phase15(torch, cf)
+
+    # phase 16: report, for each kernel the case the main path launches most
     pick = {"fir_tile_fwd": ("fir_cascade 16x2^20 K4097", "f32"),
             "fir_toeplitz_fwd": ("fir_cascade 16x2^20 K4097 bf16in", "bf16"),
             "fir_decim_fwd": ("fir_decim 64x2^18 K155 d8", "f32"),

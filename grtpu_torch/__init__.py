@@ -30,7 +30,8 @@ kernels; WBFM and the FM family; the polyphase filterbank; DMR 4FSK; the
 executor's run modes; the digital modem stack; messages, tags, packets and
 OFDM; trellis, FEC and ATSC; the rest of the block library, the vocoders
 and the voice, pager and NOAA models; flowgraph files, host I/O, the GUI
-sinks and the trace tools):
+sinks and the trace tools; the mesh executor and the parallel package;
+grtpu's examples):
     grtpu_torch.runtime -- Block protocol and StreamSpec, graph builder,
                            time-block executor (fixed rate, the
                            variable-rate FIFO, stream tags, device_loop),
@@ -58,6 +59,11 @@ sinks and the trace tools):
                            bridges, XML-RPC control, the native ring
     grtpu_torch.gui     -- headless spectrum, waterfall, scope,
                            constellation, number and histogram sinks
+    grtpu_torch.parallel -- meshes of devices, halo exchange, the sharded
+                           WBFM bank, pipelines, time-sharded clock
+                           recovery, multi-process ingest
+    grtpu_torch.examples -- grtpu's example programs (python -m
+                           grtpu_torch.examples.<name>)
     grtpu_torch.utils   -- firdes and optfir tap design, the Parks-McClellan
                            engine, engineering notation, the default
                            device, test helpers, the idle-share profiler,

@@ -241,6 +241,8 @@ def test_default_device_is_the_card():
     from grtpu_torch.fec import conv
     from grtpu_torch.models import atsc, atsc_rf, digital_voice
     from grtpu_torch.vocoder import cvsd, g72x, gsm
+    from grtpu_torch.examples import (howto_write_a_block as howto,
+                                      stream_server, trellis_ber)
 
     for fn in (pfb_blocks.pfb_clock_sync_init,
                pfb_blocks.pfb_clock_sync_windowed_init, dsp.nco_sin,
@@ -261,7 +263,11 @@ def test_default_device_is_the_card():
                atsc_rf.AtscRfReceiver.__init__, g72x.g72x_init_state,
                cvsd.cvsd_init_state, gsm.gsm_init_encode_state,
                gsm.gsm_init_decode_state, digital_voice.DigitalVoiceTx.__init__,
-               digital_voice.DigitalVoiceRx.__init__):
+               digital_voice.DigitalVoiceRx.__init__,
+               trellis_ber.sim_tcm, trellis_ber.sim_eq, trellis_ber.sim_sccc,
+               trellis_ber.sim_pccc, trellis_ber.sim_turbo_eq,
+               stream_server.serve, howto.qa_square_ff,
+               howto.qa_square_accum_ff, howto.qa_threshold_tag_ff):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     src = inspect.getsource(device)
     assert "is_available" not in src
