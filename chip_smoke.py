@@ -25,6 +25,11 @@ Phases (each raises on failure; nothing is caught):
      on the same input and timed in turns too (fma_route_ms).  The host's
      cost of one fir_decim call at the main path's chunk is timed alone
      (batches of 1,000 calls on the host clock, no synchronize between them).
+     The complex cases (fir_decim_c, ccf, and fir_decim_cc, ccc: the bank's
+     64 channels as a complex64 stream, with the 155 taps and with them
+     turned by a quarter of the band; 4 x 16k K200 d4; 4 x 8k K96 d2) must
+     make exactly one launch a call, the kernels' complex mode reading the
+     interleaved stream; their twin is cuda_fir.fir_decim_cplx_ref.
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
@@ -64,6 +69,12 @@ Phases (each raises on failure; nothing is caught):
         is printed: float32 cannot hold it at this chunk, see PERF.md).
         Prints Msamples/s of input.  The kernel path runs again at chunk
         65,536, and the audio SNR is printed at both chunks.
+     c. the same capture through the channel-select filter of a narrowband
+        receiver, FirFilter(8, the tuner's 99 taps turned to +400 kHz,
+        "ccc", impl="kernel"), chunk 524,288, eager and device_loop, two
+        runs each: one fir_decim_* launch a chunk and nothing else (counts
+        zeroed before each run, read after), device_loop torch.equal to
+        eager, within 1e-4 of impl="mxu".  Prints Msamples/s of input.
      b. NbfmTx(16e3, 64e3) -> NbfmRx(16e3, 64e3) on 2^20 audio samples of a
         1 kHz tone (tests/test_fm_models.py:89-116's gates); WfmRcvPll on a
         stereo composite (19 kHz pilot, 700 Hz left, 2200 Hz right), 2^21
@@ -312,6 +323,7 @@ MAIN_CHUNK = 65536
 # are exact in float32, so the modes differ only in float32 summation order
 # (and, for bf16, in which side of a bf16 rounding boundary a sum lands)
 TOL = {"f32": 1e-5, "bf16x3": 1e-4, "bf16": 3e-2}
+CHANNEL_TURN = 0.25    # a complex band-pass: low-pass taps turned by fs / 4
 SNR_GATE_DB = 50.0
 # published peaks of one H100 SXM (dense): what each precision mode can use.
 # bf16x3 takes three bf16 products a tap.
@@ -507,8 +519,14 @@ def check_kernels(torch, cf, fir, firdes, _build):
 
     def case(name, kernel, precision, run, twin, flop, nbytes, reps=10,
              twin_reps=3, library=None, lib_reps=10, fma=None, graphed=False,
-             rounds=1):
+             rounds=1, one_launch=False):
+        before = dict(cf.launches)
         got = run()
+        launched = {n: cf.launches[n] - before[n] for n in cf.launches
+                    if cf.launches[n] != before[n]}
+        if one_launch and launched != {kernel: 1}:
+            fail(f"{name} {precision}: one call launched {launched}, "
+                 f"expected {kernel} once")
         ref = twin()
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -547,7 +565,9 @@ def check_kernels(torch, cf, fir, firdes, _build):
         lib = ("none" if library_ms is None else
                f"{library_ms:.4f} (conv1d, rel_err vs twin {lib_err:.1e})")
         print(f"kernel {name:28s} {kernel:19s} {precision:7s} "
-              f"max_rel_err={rel_err:.3e} (tol {TOL[precision]:g}) "
+              + (f"launches_a_call={sum(launched.values())} "
+                 if one_launch else "")
+              + f"max_rel_err={rel_err:.3e} (tol {TOL[precision]:g}) "
               f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"share_of_bound={bound_ms / ms:.3f} library_ms={lib}"
@@ -640,18 +660,31 @@ def check_kernels(torch, cf, fir, firdes, _build):
             (lambda: cf._launch_tile(x, t155, AUDIO_DECIM, 0, nout, prec,
                                      _fma=True)))
     del x16
-    # the same filter in its ccf form at the bank's width: 64 complex
-    # channels, the two planes of each as rows of one launch; the library
-    # call is conv1d on the complex64 stream
+    # the same filter in its ccf and ccc forms at the bank's width: 64
+    # complex channels, one launch of the kernel's complex mode reading the
+    # interleaved stream (ccc: the taps turned by a channel offset of a
+    # quarter of the band); the library call is conv1d on the complex64
+    # stream, the twin the complex modes' plain form
     xc = torch.complex(x, x.flip(0))
-    for prec in ("bf16x3", "f32"):
-        case("fir_decim_c 64x2^18 K155 d8",
-             "fir_decim_fwd" if prec == "f32" else "fir_decim_mma_fwd", prec,
-             lambda: cf.fir_decim_c(xc, t155[0], AUDIO_DECIM, precision=prec),
-             lambda: fir.fir_filter(xc, t155[0], AUDIO_DECIM, prec),
-             flop=2 * k * 2 * 64 * nout,
-             nbytes=8 * xc.numel() + 4 * k + 8 * 64 * nout, reps=5,
-             library=conv1d(xc, t155[0], AUDIO_DECIM), lib_reps=5)
+    t155c = torch.from_numpy(fir.rotate_taps(taps155, CHANNEL_TURN, 1.0)
+                             ).to(dev)
+    for sig, taps_c, cplx, per in (("c", t155[0], cf.CCF, 2),
+                                   ("cc", t155c, cf.CCC, 4)):
+        for prec in ("bf16x3", "f32"):
+            case(f"fir_decim_{sig} 64x2^18 K155 d8",
+                 "fir_decim_fwd" if prec == "f32" else "fir_decim_mma_fwd",
+                 prec,
+                 lambda: getattr(cf, f"fir_decim_{sig}")(
+                     xc, taps_c, AUDIO_DECIM, precision=prec),
+                 lambda: cf.fir_decim_cplx_ref(xc, taps_c, AUDIO_DECIM, 0,
+                                               nout, prec, cplx),
+                 flop=2 * k * per * 64 * nout,
+                 nbytes=8 * xc.numel() + 4 * (per // 2) * k + 8 * 64 * nout,
+                 reps=5, library=conv1d(xc, taps_c, AUDIO_DECIM), lib_reps=5,
+                 one_launch=True,
+                 fma=None if prec == "f32" else
+                 (lambda: cf._launch_tile(xc, taps_c, AUDIO_DECIM, 0, nout,
+                                          prec, _fma=True, cplx=cplx)))
     del xc
 
     # short filters at decimation 8 and 2: the two decimating routes side by
@@ -661,11 +694,10 @@ def check_kernels(torch, cf, fir, firdes, _build):
         for d in (8, 2):
             xs = x[:, :(1 << 15) * d + kk - 1].contiguous()
             for prec in ("bf16", "bf16x3"):
-                plan = cf._Plan(
-                    "fir_decim_mma_fwd", _build.library().fir_decim_mma_fwd,
-                    (64, xs.shape[1], 1, kk, d, 0, 1 << 15,
-                     cf._PRECISION_CODE[prec])
-                    + cf._decim_mma_plan(prec, d, kk, 64, 1 << 15))
+                plan = cf._decim_launch(
+                    "fir_decim_mma_fwd", 64, xs.shape[1], 1, kk, d, 0,
+                    1 << 15, prec, cf._decim_mma_plan(prec, d, kk, 64,
+                                                      1 << 15))
                 tensor_ms = graph_ms(
                     lambda: cf._launch_tile(xs, tk, d, 0, 1 << 15, prec,
                                             _plan=plan), 20)
@@ -684,23 +716,28 @@ def check_kernels(torch, cf, fir, firdes, _build):
                            + 1j * rng.randn(4, 4096 * d + k - 1)
                            ).astype(np.complex64)).to(dev)
     tr = torch.from_numpy((rng.randn(k) / k).astype(np.float32)).to(dev)
-    # (two real planes a launch; the library call is conv1d on complex64)
+    # (one launch in the complex mode; the library call is conv1d on
+    # complex64)
     case("fir_decim_c 4x16k K200 d4", "fir_decim_fwd", "f32",
          lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
          lambda: fir.fir_filter(xc, tr, d, "f32"),
          flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096,
-         library=conv1d(xc, tr, d))
+         library=conv1d(xc, tr, d), one_launch=True)
     k, d = 96, 2
     xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
                            + 1j * rng.randn(4, 4096 * d + k - 1)
                            ).astype(np.complex64)).to(dev)
     tc = torch.from_numpy(((rng.randn(k) + 1j * rng.randn(k)) / k
                            ).astype(np.complex64)).to(dev)
-    case("fir_decim_cc 4x8k K96 d2", "fir_decim_mma_fwd", "bf16x3",
+    # (one launch over both tap planes, the route cuda_fir._route names)
+    case("fir_decim_cc 4x8k K96 d2",
+         "fir_decim_mma_fwd" if cf._route("bf16x3", d, k, 4, 4096,
+                                          cplx=cf.CCC) == "decim_mma"
+         else "fir_decim_fwd", "bf16x3",
          lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
          lambda: fir.fir_filter(xc, tc, d, "bf16x3"),
          flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096,
-         library=conv1d(xc, tc, d))
+         library=conv1d(xc, tc, d), one_launch=True)
     del xc
 
     # the headline workload (bench.py): 16 pipes x 2^20 samples, 16 stages
@@ -1323,6 +1360,75 @@ def run_tuner_wbfm(torch, cf):
     # phase 13 runs the same chain from a flowgraph file on the same capture
     return rate, counts, {"capture": x, "taps": taps, "audio": audio,
                           "snr": audio_snr}
+
+
+def run_channel_select(torch, cf, capture):
+    """Phase 6c: config #1's capture through the channel-select filter of a
+    narrowband receiver, FirFilter(8, the tuner's 99-tap low-pass turned to
+    the station at TUNE_HZ, "ccc", impl="kernel") (what the GRC registry's
+    gr_fir_filter_ccc builds), at chunk 524,288 in both run modes, two runs
+    each (an executor carries its history from one run into the next, so
+    runs are compared by their index).  Gates: one fir_decim_* launch a
+    chunk and nothing else (counts zeroed just before each run and read just
+    after it), each device_loop run torch.equal to the eager run of its
+    index, the first run within bf16x3's tolerance of impl="mxu"'s."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks.filter import FirFilter
+    from grtpu_torch.ops.fir import rotate_taps
+    from grtpu_torch.utils import firdes
+
+    taps = rotate_taps(firdes.low_pass(1.0, CAPTURE_FS, 100e3, 50e3),
+                       TUNE_HZ, CAPTURE_FS)
+    x_dev = torch.from_numpy(capture).to("cuda")
+    nchunks = CAPTURE_SAMPLES // CAPTURE_CHUNK
+
+    def executor(impl):
+        g = chain_graph(torch, [FirFilter(TUNER_DECIM, taps, "ccc",
+                                          impl=impl)], torch.complex64)
+        return StreamExecutor(g, chunk_size=CAPTURE_CHUNK, device="cuda")
+
+    mxu = executor("mxu").run(x_dev)
+    outs, rates, runs = {}, {}, []
+    for mode in ("eager", "device_loop"):
+        ex = executor("kernel")
+        outs[mode] = []
+        for _ in range(2):
+            for name in cf.launches:
+                cf.launches[name] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = ex.run(x_dev, device_loop=mode == "device_loop")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {n: v for n, v in cf.launches.items() if v}
+            runs.append((mode, counts))
+            kernel = sum(counts.get(n, 0) for n in ("fir_decim_fwd",
+                                                     "fir_decim_mma_fwd"))
+            if kernel != nchunks or sum(counts.values()) != nchunks:
+                fail(f"channel select ccc ({mode}) launched {counts}; "
+                     f"expected one fir_decim_* launch a chunk ({nchunks})")
+            outs[mode].append(y)
+        rates[mode] = CAPTURE_SAMPLES / secs / 1e6
+    same = all(torch.equal(a, b)
+               for a, b in zip(outs["eager"], outs["device_loop"]))
+    y = outs["eager"][0]
+    _, err = errors(y, mxu)
+    print(f"channel select ccc FirFilter(8, {len(taps)} taps turned to "
+          f"{TUNE_HZ / 1e3:g} kHz, impl=kernel), {CAPTURE_SAMPLES} input "
+          f"samples, chunk {CAPTURE_CHUNK}: eager {rates['eager']:.2f}, "
+          f"device_loop {rates['device_loop']:.2f} Msamples/s of input "
+          f"(second run of each); launches a run {runs}; output "
+          f"{tuple(y.shape)} {y.dtype}; device_loop torch.equal to eager, "
+          f"run by run: {same}; kernel vs mxu (first runs) "
+          f"max_rel_err={err:.3e} "
+          f"(tol {TOL['bf16x3']:g})", flush=True)
+    if not same:
+        fail("channel select ccc: the device_loop output differs from eager")
+    if (y.shape != (CAPTURE_SAMPLES // TUNER_DECIM,)
+            or not torch.isfinite(torch.view_as_real(y)).all()):
+        fail(f"channel select ccc: output {tuple(y.shape)} or non-finite")
+    if not err <= TOL["bf16x3"]:
+        fail("channel select ccc: the kernel path disagrees with mxu")
 
 
 def run_fm_family(torch):
@@ -4737,6 +4843,7 @@ def main() -> int:
     # phase 6: config #1 in full (tuner -> WBFM) and the FM family; its own
     # launch counts, zeroed before and read after
     _, _, config1 = run_tuner_wbfm(torch, cf)
+    run_channel_select(torch, cf, config1["capture"])
     run_fm_family(torch)
 
     # phase 7: config #2, the polyphase filterbank (no hand kernel)

@@ -161,10 +161,10 @@ def library() -> SimpleNamespace:
             "fir_error_string": ([i], ctypes.c_char_p),
         },
         decim: {
-            "fir_decim_fwd": ([p, i, p, p] + [i] * 10 + [p], i),
-            "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
-            "fir_decim_smem": ([i] * 5, i64),
-            "fir_decim_mma_smem": ([i] * 5, i64),
+            "fir_decim_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
+            "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 12 + [p], i),
+            "fir_decim_smem": ([i] * 6, i64),
+            "fir_decim_mma_smem": ([i] * 6, i64),
         },
         viterbi: {
             "viterbi_fwd": ([p] * 4 + [i] * 11 + [p, p, p], i),

@@ -19,6 +19,14 @@ over the CUDA C++ kernels in ``grtpu_torch/csrc``:
 * ``fir_decim_mma_fwd`` — decimation > 1 in bf16 and bf16x3 on the tensor
   cores (``mma.sync``): windows of the stream, 8 outputs apart, against the
   strided Toeplitz matrix of the taps, behind the same ring.
+
+  Both decimating kernels also take a complex64 stream in one launch
+  (``cplx`` 1, ccf: real taps; 2, ccc: complex64 taps): the stream is read
+  interleaved and the output written interleaved, the re / im split made
+  in shared memory.  That is ``fir_decim_c`` and ``fir_decim_cc`` at
+  decimation > 1; at decimation 1 (and for windows too large for the
+  decimating kernels) they run the real FIR over the stacked re / im
+  planes, :func:`_route`'s "planes".
 * ``fir_cascade_fwd``  — S chained FIRs with the same taps from zero
   history, the stages resident in shared memory, float32 FMAs (f32).
 * ``fir_cascade_mma_fwd`` — the same cascade in bf16 and bf16x3, each stage
@@ -34,15 +42,17 @@ fir_cascade); the TPU kernel's halo and orientation bookkeeping
 (``_pad_taps``, ``_tap_group``, the 8-sublane rounding) has no counterpart.
 
 Dispatch is by the tensor's device: a CPU tensor runs the kernel's plain
-PyTorch twin (:func:`fir_tile_ref`, :func:`fir_cascade_ref`); a CUDA tensor
-launches the kernel, building it at first use, or raises.
-:func:`fir_toeplitz_ref` and :func:`fir_decim_mma_ref` are the plain forms
-of the tensor-core routes' own arithmetic and layout.  ``launches`` counts
-the kernel launches, one per launch under the name of the entry that was
-called, for callers that must show a path went through the kernels.  A
-launch made while a CUDA graph is captured launches nothing: inside
-:func:`recording_launches` it goes to the record instead, and each replay of
-the graph adds the record to ``launches`` (:func:`add_launches`).
+PyTorch twin (:func:`fir_tile_ref`, :func:`fir_cascade_ref`; a complex
+stream as its two planes); a CUDA tensor launches the kernel, building it
+at first use, or raises.  :func:`fir_toeplitz_ref`,
+:func:`fir_decim_mma_ref` and :func:`fir_decim_cplx_ref` are the plain
+forms of the tensor-core routes' and the complex modes' own arithmetic.
+``launches`` counts the kernel launches, one per launch under the name of
+the entry that was called, for callers that must show a path went through
+the kernels.  A launch made while a CUDA graph is captured launches
+nothing: inside :func:`recording_launches` it goes to the record instead,
+and each replay of the graph adds the record to ``launches``
+(:func:`add_launches`).
 
 ``tile_rows`` is accepted for grtpu signature compatibility; the Hopper
 kernels size their tiles from shared memory and the batch instead.
@@ -73,6 +83,9 @@ launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd"), 0)
 _recording = []
 
 _PRECISION_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
+# The decimating kernels' stream modes: real, complex stream against real
+# taps, complex stream against complex taps.
+REAL, CCF, CCC = 0, 1, 2
 _THREADS = 256           # fir_tile_fwd: threads a block, 8 outputs each
 _KBLK = 2048             # fir_tile_fwd: taps staged in shared memory per pass
 _MAX_TILE_SPAN = 4096    # input samples a fir_tile_fwd window spans, at most
@@ -110,10 +123,20 @@ _TZ_MAX_TAPS = {"bf16": 20481, "bf16x3": 6145}
 _DM_MIN_TAPS = {"bf16": {2: 128, 3: 64, 4: 64, 5: 64, 6: 64, 7: 64},
                 "bf16x3": {2: 64}}
 _DM_MIN_TAPS_ELSE = 16
+# The complex modes take the tensor cores from 16 taps at every decimation:
+# the same sweep on a complex64 stream, tensor / FMA ms, ccf and ccc,
+#   decimation 2   bf16   K 16 0.0242 / 0.0257   0.0259 / 0.0363
+#                  bf16x3 K 16 0.0254 / 0.0357   0.0316 / 0.0586
+#   decimation 3-16, bf16 and bf16x3, 16 to 256 taps: tensor 1.05-7.0x ahead
+# (H100, 700 W; twice the FLOP a byte of the real stream moves the
+# crossovers below 16 taps, where nothing was timed).
 
 
-def _dm_min_taps(precision: str, decim: int) -> int:
-    """Taps from which ``precision`` at ``decim`` takes the tensor cores."""
+def _dm_min_taps(precision: str, decim: int, cplx: int = REAL) -> int:
+    """Taps from which ``precision`` at ``decim`` takes the tensor cores
+    (``cplx``: the stream mode)."""
+    if cplx:
+        return _DM_MIN_TAPS_ELSE
     return _DM_MIN_TAPS[precision].get(decim, _DM_MIN_TAPS_ELSE)
 
 
@@ -241,6 +264,27 @@ def fir_decim_mma_ref(x: torch.Tensor, tapsets: torch.Tensor, decim: int,
     return y.reshape(b, nseg * 8)[:, :nout]
 
 
+def fir_decim_cplx_ref(x: torch.Tensor, taps: torch.Tensor, decim: int,
+                       lead: int, nout: int, precision: str,
+                       cplx: int) -> torch.Tensor:
+    """Plain PyTorch form of the decimating kernels' complex modes (the
+    contract of :func:`fir_tile_ref` on a complex64 stream ``x`` (B,
+    total), row b on tap set b % G of ``taps`` (K,) or (G, K)): float32
+    (``cplx`` 1, ccf) or complex64 (2, ccc).  Each (stream plane, tap
+    plane) pair is one real sum with the mode's split-word products; ccf
+    returns re.t + j im.t, ccc (re.tr - im.ti) + j (re.ti + im.tr)."""
+    tapsets = taps if taps.ndim == 2 else taps[None]
+    re, im = x.real, x.imag
+
+    def s(plane, t):
+        return fir_tile_ref(plane, t, decim, lead, nout, precision)
+
+    if cplx == CCF:
+        return torch.complex(s(re, tapsets), s(im, tapsets))
+    tr, ti = tapsets.real, tapsets.imag
+    return torch.complex(s(re, tr) - s(im, ti), s(re, ti) + s(im, tr))
+
+
 # ------------------------------------- shared-memory sizes, as fir_*.cu has them
 def _skew(col: int) -> int:
     return col + ((col >> 5) << 2)
@@ -288,62 +332,113 @@ def _ring_stage_bytes(wl: int, es: int) -> int:
     return (wl + 3 * per - 1) // per * 16
 
 
-def _decim_smem(precision: str, es: int, k: int, decim: int, kp: int) -> int:
-    """fir_decim.cu's ``decim_smem``: the ring's stages of raw samples (es
-    bytes each), per plane ``decim`` rows of taps and of the skewed window of
-    1024 / kp outputs, and the 1024 partial sums."""
+def _planes(cplx: int):
+    """(stream planes, tap planes) of a complex mode: real 1, 1; ccf 2, 1;
+    ccc 2, 2.  The kernels keep one sum a pair."""
+    return (2 if cplx else 1), (2 if cplx == CCC else 1)
+
+
+def _elem_bytes(cplx: int) -> int:
+    """Bytes of a float32 stream's element (a complex64 one in the complex
+    modes)."""
+    return 8 if cplx else 4
+
+
+def _with_ring(ring_bytes: int, rest: int) -> int:
+    """fir_decim.cu's ``decim_fits``: a block's bytes with its ring of
+    three stages where that fits shared memory, else without (the block
+    then takes its windows out of device memory)."""
+    return (_DC_STAGES * ring_bytes + rest
+            if _DC_STAGES * ring_bytes + rest <= _SMEM_OPTIN else rest)
+
+
+def _decim_smem(precision: str, es: int, k: int, decim: int, kp: int,
+                cplx: int = REAL) -> int:
+    """fir_decim.cu's ``decim_smem`` as a launch chooses it: the ring's
+    stages of raw samples (es bytes each) where they fit, per precision
+    plane ``decim`` rows of taps (a row a tap plane) and of the skewed
+    window of 1024 / kp outputs (a window a stream plane), whose space the
+    1024 partial sums a (stream plane, tap plane) pair take once it is
+    read."""
+    nc, nt = _planes(cplx)
     to = _DC_THREADS // kp * 8
     q8 = _round(-(-k // decim), 8)
     row = _round(_skew(to + q8 + 8), 4)
     if decim in (2, 4, 8):
         while row % (64 // decim) != 32 // decim:
             row += 4
-    return (_DC_STAGES * _ring_stage_bytes((to - 1) * decim + k, es)
-            + 4 * (_npl(precision) * decim * (q8 + row) + _DC_THREADS * 8))
+    return _with_ring(_ring_stage_bytes((to - 1) * decim + k, es),
+                      4 * (_npl(precision) * decim * nt * q8
+                           + max(_npl(precision) * decim * nc * row,
+                                 nc * nt * _DC_THREADS * 8)))
 
 
 def _decim_mma_smem(precision: str, es: int, k: int, decim: int,
-                    mtb: int) -> int:
-    """fir_decim.cu's ``decim_mma_smem``: the ring's stages, per plane the
-    padded bf16 window of ``mtb`` tiles and two parity copies of the tap
-    words, and the 512 partial sums."""
+                    mtb: int, cplx: int = REAL) -> int:
+    """fir_decim.cu's ``decim_mma_smem`` as a launch chooses it: the ring's
+    stages where they fit, per precision plane the padded bf16 window of
+    ``mtb`` tiles (a window a stream plane), whose space the 512 partial
+    sums a (stream plane, tap plane) pair take once it is read, and two
+    parity copies of the tap words (a tap plane each)."""
+    nc, nt = _planes(cplx)
     ks = -(-(8 * decim + k - 1) // 16)
     wb = (16 * mtb - 1) * 8 * decim + 16 * ks
     plane = _round(wb + ((wb // (8 * decim) + 1) * 8
                          if decim in (2, 4, 8) else 0), 8)
     off = (7 * decim + 1) & ~1
     words = _round((off + 16 * ks + 2) // 2 + 1, 32) + 16
-    return (_DC_STAGES * _ring_stage_bytes(wb, es)
-            + _npl(precision) * (2 * plane + 8 * words) + 4 * _DC_THREADS * 4)
+    return _with_ring(_ring_stage_bytes(wb, es),
+                      max(_npl(precision) * 2 * nc * plane,
+                          4 * nc * nt * _DC_THREADS * 4)
+                      + _npl(precision) * 8 * nt * words)
 
 
 # ------------------------------------------------------ routes and plans
 def _blocks_per_row(b: int, tiles: int, sms: int, smem: int) -> int:
-    """Tiles of one row a block of a decimating kernel walks.  A block's
-    phases (load, take out, compute) are serial, so the card overlaps them
-    across the blocks an SM holds (as many as fit its shared memory, at most
-    16 of 128 threads); the grid is about three such fills, evenly loaded.
-    On the WBFM bank (H100, 700 W) 2 to 4 tiles a block ran 5-12% ahead of
-    15."""
+    """Tiles of one row a block of a decimating kernel walks, at most 16.  A
+    block's phases (load, take out, compute) are serial, so the card
+    overlaps them across the blocks an SM holds (as many as fit its shared
+    memory, at most 16 of 128 threads); the grid runs as waves of that many
+    blocks, each wave as long as its blocks' tiles plus about one tile of
+    start-up (ring, taps).  Take the block size with the least waves x
+    (tiles + 1), of equals the longest: a grid smaller than one wave keeps
+    one tile a block.  On the WBFM bank (H100, 700 W, from a CUDA graph;
+    ``sweep_plans``) this is the fastest measured or within 2% of it for
+    every plan the planner takes, where the earlier rule (about three
+    fills) lost 5-10%: real bf16x3 13 tiles 0.0414 ms (was 4, 0.0450), f32
+    13 tiles 0.0486 (4, 0.0508); as a complex stream ccf 16 tiles 0.0738
+    (10, 3.2 waves: 13 tiles ran 0.0816), ccc 16 tiles 0.0989 (best 0.0970
+    at 8)."""
     resident = sms * max(1, min(16, 233472 // (smem + 1024)))
-    tpb = max(1, min(16, b * tiles // (3 * resident)))
-    return -(-tiles // -(-tiles // tpb))     # the same blocks, evenly filled
+    best = None
+    for tpb in range(1, 17):
+        blocks = -(-tiles // tpb)
+        tpb = -(-tiles // blocks)           # the same blocks, evenly filled
+        key = (-(-b * blocks // resident) * (tpb + 1), -tpb)
+        if best is None or key < best:
+            best = key
+    return -best[1]
 
 
 @functools.lru_cache(maxsize=4096)
 def _decim_mma_plan(precision: str, decim: int, k: int, b: int, nout: int,
-                    sms: int = _H100_SMS):
+                    sms: int = _H100_SMS, cplx: int = REAL):
     """(mtb, to, tpb) for ``fir_decim_mma_fwd``: ``mtb`` tiles of 128
     outputs a block (each tile's k-steps shared by 4 / mtb warps), ``to``
     outputs a block kept, ``tpb`` such tiles a block walks.  Two tiles a
-    block where that still gives every SM two blocks (on the WBFM bank, H100
-    at 700 W, bf16x3 from a CUDA graph: 0.042-0.048 ms against 0.045-0.055 at
-    four tiles and 0.045-0.061 at one); a lone chunk is cut into blocks of
-    fewer than 128 outputs so that it fills the card.  None when no block
-    fits shared memory."""
+    block where that still gives every SM two blocks and leaves room for
+    four blocks an SM (on the WBFM bank, H100 at 700 W, bf16x3 from a CUDA
+    graph: real 0.042-0.048 ms against 0.045-0.055 at four tiles and
+    0.045-0.061 at one; as a complex stream, whose two tiles take 80 KB,
+    ccf 0.074-0.078 at one tile against 0.087-0.093 at two); a lone chunk
+    is cut into blocks of fewer than 128 outputs so that it fills the card.
+    ``cplx``: the stream mode, whose planes the block's shared memory
+    holds.  None when no block fits shared memory."""
+    es = _elem_bytes(cplx)
     for mtb, need in ((2, 2 * sms), (1, 0)):
-        if (b * -(-nout // (128 * mtb)) >= need
-                and _decim_mma_smem(precision, 4, k, decim, mtb) <= _SMEM_OPTIN):
+        smem = _decim_mma_smem(precision, es, k, decim, mtb, cplx)
+        if (b * -(-nout // (128 * mtb)) >= need and smem <= _SMEM_OPTIN
+                and (mtb == 1 or 233472 // (smem + 1024) >= 4)):
             break
     else:
         return None
@@ -351,45 +446,53 @@ def _decim_mma_plan(precision: str, decim: int, k: int, b: int, nout: int,
     if mtb == 1 and b * -(-nout // 128) < sms:
         to = 8 * max(1, min(16, b * nout // (8 * sms)))
     return mtb, to, _blocks_per_row(
-        b, -(-nout // to), sms, _decim_mma_smem(precision, 4, k, decim, mtb))
+        b, -(-nout // to), sms,
+        _decim_mma_smem(precision, es, k, decim, mtb, cplx))
 
 
 @functools.lru_cache(maxsize=4096)
 def _decim_fma_plan(precision: str, decim: int, k: int, b: int, nout: int,
-                    sms: int = _H100_SMS):
+                    sms: int = _H100_SMS, cplx: int = REAL):
     """(kp, tpb) for ``fir_decim_fwd``: ``kp`` groups of threads share the
     phases of a tile of 1024 / kp outputs, ``tpb`` tiles a block walks.
     None when the window does not fit shared memory."""
+    es = _elem_bytes(cplx)
     for kp in (4, 2, 1):
-        if kp <= decim and _decim_smem(precision, 4, k, decim, kp) <= _SMEM_OPTIN:
-            return kp, _blocks_per_row(
-                b, -(-nout // (1024 // kp)), sms,
-                _decim_smem(precision, 4, k, decim, kp))
+        smem = _decim_smem(precision, es, k, decim, kp, cplx)
+        if kp <= decim and smem <= _SMEM_OPTIN:
+            return kp, _blocks_per_row(b, -(-nout // (1024 // kp)), sms, smem)
     return None
 
 
 def _route(precision: str, decim: int, k: int, b: int, nout: int,
-           fma: bool = False) -> str:
+           fma: bool = False, cplx: int = REAL) -> str:
     """Which kernel a single-stage call takes: "toeplitz" (decimation 1,
     bf16 / bf16x3, ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS`` taps), "decim_mma"
     (decimation > 1, bf16 / bf16x3, from ``_dm_min_taps`` taps), "decim_fma"
     (decimation > 1 otherwise), "tile" (decimation 1 otherwise, and windows
     too large for the decimating kernels' shared memory) or "empty" (no
     output).  ``fma`` forces the CUDA cores, for timing the routes side by
-    side."""
+    side.  A complex stream (``cplx`` CCF or CCC) takes the decimating
+    kernels in their complex mode, one launch; where the real stream would
+    take "tile" or "toeplitz" (decimation 1, or a window too large for the
+    decimating kernels) it takes "planes": the real FIR over its stacked re
+    and im planes, chosen by shape alone."""
     if b == 0 or nout == 0:
         return "empty"
     tensor = precision != "f32" and not fma
     if decim == 1:
+        if cplx:
+            return "planes"
         if tensor and _TZ_MIN_TAPS <= k <= _TZ_MAX_TAPS[precision]:
             return "toeplitz"
         return "tile"
-    if (tensor and k >= _dm_min_taps(precision, decim)
-            and _decim_mma_plan(precision, decim, k, b, nout) is not None):
+    if (tensor and k >= _dm_min_taps(precision, decim, cplx)
+            and _decim_mma_plan(precision, decim, k, b, nout,
+                                cplx=cplx) is not None):
         return "decim_mma"
-    if _decim_fma_plan(precision, decim, k, b, nout) is not None:
+    if _decim_fma_plan(precision, decim, k, b, nout, cplx=cplx) is not None:
         return "decim_fma"
-    return "tile"
+    return "planes" if cplx else "tile"
 
 
 class _Plan(NamedTuple):
@@ -450,30 +553,49 @@ def _toeplitz_launch(lib, b, total, g, k, lead, nout, precision, sms):
                   seg_rows, nseg, lrows), (_npl(precision), b, lrows * LANE))
 
 
+def _decim_launch(name: str, b: int, total: int, g: int, k: int,
+                  decim: int, lead: int, nout: int, precision: str, plan,
+                  cplx: int = REAL) -> _Plan:
+    """The launch of decimating kernel ``name`` ("fir_decim_fwd" or
+    "fir_decim_mma_fwd") with launch parameters ``plan`` (kp, tpb) or (mtb,
+    to, tpb) in stream mode ``cplx``."""
+    from grtpu_torch.ops._build import library
+
+    return _Plan(name, getattr(library(), name),
+                 (b, total, g, k, decim, lead, nout,
+                  _PRECISION_CODE[precision]) + tuple(plan) + (cplx,))
+
+
 @functools.lru_cache(maxsize=4096)
 def _launch_plan(b: int, total: int, g: int, k: int, decim: int, lead: int,
-                 nout: int, precision: str, index: int, fma: bool = False):
-    """The launch of one single-stage call, computed once per shape: the
-    route, the kernel's launch parameters and its shared-memory check.
-    ``index`` is the CUDA device's.  None when there is nothing to launch."""
+                 nout: int, precision: str, index: int, fma: bool = False,
+                 cplx: int = REAL):
+    """The launch of one single-stage call, computed once per shape and
+    stream mode: the route, the kernel's launch parameters and its
+    shared-memory check.  ``index`` is the CUDA device's.  None when there is
+    nothing to launch."""
     from grtpu_torch.ops._build import library
 
     lib = library()
     sms = _sm_count(index)
     code = _PRECISION_CODE[precision]
-    route = _route(precision, decim, k, b, nout, fma)
+    route = _route(precision, decim, k, b, nout, fma, cplx)
     if route == "empty":
         return None
+    if route == "planes":
+        raise ValueError("a complex stream takes the plane path here "
+                         "(decimation 1 or an oversized window); no "
+                         "complex-mode launch exists for it")
     if route == "toeplitz":
         return _toeplitz_launch(lib, b, total, g, k, lead, nout, precision, sms)
     if route == "decim_mma":
-        plan = _decim_mma_plan(precision, decim, k, b, nout, sms)
-        return _Plan("fir_decim_mma_fwd", lib.fir_decim_mma_fwd,
-                     (b, total, g, k, decim, lead, nout, code) + plan)
+        return _decim_launch(
+            "fir_decim_mma_fwd", b, total, g, k, decim, lead, nout, precision,
+            _decim_mma_plan(precision, decim, k, b, nout, sms, cplx), cplx)
     if route == "decim_fma":
-        plan = _decim_fma_plan(precision, decim, k, b, nout, sms)
-        return _Plan("fir_decim_fwd", lib.fir_decim_fwd,
-                     (b, total, g, k, decim, lead, nout, code) + plan)
+        return _decim_launch(
+            "fir_decim_fwd", b, total, g, k, decim, lead, nout, precision,
+            _decim_fma_plan(precision, decim, k, b, nout, sms, cplx), cplx)
     plan = _tile_plan(precision, decim, k, b, nout, sms)
     return _Plan("fir_tile_fwd", lib.fir_tile_fwd,
                  (b, total, g, k, decim, lead, nout, code) + plan)
@@ -521,19 +643,21 @@ def add_launches(record):
 
 
 def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False,
-                 _plan=None):
+                 _plan=None, cplx=REAL):
     """Launch the single-stage FIR on the kernel :func:`_route` names
     (``_fma`` forces the CUDA cores, ``_plan`` another plan than
     :func:`_launch_plan`'s, both for timing choices side by side).  x: (B,
     total) contiguous; tapsets: (K,) or (G, K) float32 contiguous on x's
-    device."""
+    device.  In the complex modes (``cplx`` CCF, CCC; decimation > 1) x and
+    the output are complex64, and the taps too in CCC."""
     b, total = x.shape
     g, k = (1, tapsets.shape[0]) if tapsets.ndim == 1 else tapsets.shape
     index = x.device.index
     x_bf16 = x.dtype == torch.bfloat16
     plan = _plan or _launch_plan(b, total, g, k, decim, lead, nout, precision,
-                                 index, _fma)
-    y = torch.empty((b, nout), dtype=torch.float32, device=x.device)
+                                 index, _fma, cplx)
+    y = torch.empty((b, nout), device=x.device,
+                    dtype=torch.complex64 if cplx else torch.float32)
     if plan is None:
         return y
     args = [x.data_ptr(), int(x_bf16), tapsets.data_ptr()]
@@ -751,31 +875,76 @@ def fir_decim(x: torch.Tensor, taps, decim: int, tile_rows: int = 1024,
     return _tile(x, taps, d, 0, n // d, precision)
 
 
+def _complex_taps(taps, device, cplx: int) -> torch.Tensor:
+    """The taps of a complex-mode launch: ccf (G, K) or (K,) float32, ccc
+    complex64, used in place where they are a contiguous tensor of that
+    type on ``device`` already (the block keeps its taps so)."""
+    dtype = torch.complex64 if cplx == CCC else torch.float32
+    if (isinstance(taps, torch.Tensor) and taps.dtype == dtype
+            and taps.device == device and taps.is_contiguous()):
+        return taps
+    if cplx == CCC:
+        return torch.as_tensor(taps).to(device=device,
+                                        dtype=dtype).contiguous()
+    return _tapsets(taps, device)
+
+
+def _decim_complex(x, taps, decim, precision, cplx):
+    """``fir_decim_c`` (ccf) and ``fir_decim_cc`` (ccc) on a (C, n + K - 1)
+    complex64 stream.  A ccc call with real taps takes ccf, whose sums are
+    the same (the ti plane is zero).  On the card at decimation > 1: one
+    launch of a decimating kernel in its complex mode.  Elsewhere (the CPU,
+    and :func:`_route`'s "planes" by shape) the real FIR over the stacked
+    re / im planes: ccf one pass, ccc one a tap plane."""
+    _check_precision(precision)
+    if x.dtype != torch.complex64:
+        raise TypeError(f"expected a complex64 stream, got {x.dtype}")
+    if isinstance(taps, torch.Tensor):
+        if not taps.is_complex():
+            cplx = CCF
+    else:
+        taps = np.asarray(taps)
+        if not np.iscomplexobj(taps):
+            cplx = CCF
+    d = int(decim)
+    k = taps.shape[-1]
+    c, total = x.shape
+    n = total - (k - 1)
+    if n % d:
+        raise ValueError("fresh input must be a multiple of decim")
+    if (_device_kind(x) == "cuda"
+            and _route(precision, d, k, c, n // d, cplx=cplx) != "planes"):
+        tapsets = _complex_taps(taps, x.device, cplx)
+        return _launch_tile(x.contiguous(), tapsets, d, 0, n // d, precision,
+                            cplx=cplx)
+    planes = torch.cat([x.real, x.imag], dim=0)
+    if cplx == CCF:
+        y = fir_decim(planes, taps, d, precision=precision)
+        return torch.complex(y[:c], y[c:])
+    yr = fir_decim(planes, taps.real, d, precision=precision)
+    yi = fir_decim(planes, taps.imag, d, precision=precision)
+    return torch.complex(yr[:c] - yi[c:], yi[:c] + yr[c:])
+
+
 def fir_decim_c(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
                 precision: str = "bf16x3") -> torch.Tensor:
-    """Complex-stream real-taps (ccf) FIR with optional decimation: the two
-    real planes ride the same kernel grid as extra batch rows."""
+    """Complex-stream real-taps (ccf) FIR with optional decimation: x (C,
+    n + K - 1) or (n + K - 1,) complex64 carrying K-1 history, n // decim
+    outputs.  On the card at decimation > 1 one launch reads the
+    interleaved stream and writes the complex64 output (row c on tap set
+    c % G of (G, K) taps); otherwise the two real planes ride the real
+    kernel as extra batch rows."""
     if x.ndim == 1:
         return fir_decim_c(x[None, :], taps, decim, tile_rows, precision)[0]
-    planes = torch.cat([x.real, x.imag], dim=0)
-    y = fir_decim(planes, taps, decim, tile_rows, precision)
-    c = x.shape[0]
-    return torch.complex(y[:c], y[c:])
+    return _decim_complex(x, taps, decim, precision, CCF)
 
 
 def fir_decim_cc(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
                  precision: str = "bf16x3") -> torch.Tensor:
-    """Complex-stream complex-taps (ccc): (r*tr - i*ti) + j(r*ti + i*tr),
-    one kernel launch per tap plane over the stacked re/im planes."""
+    """Complex-stream complex-taps (ccc): (r*tr - i*ti) + j(r*ti + i*tr).
+    On the card at decimation > 1 one launch over both tap planes reads the
+    interleaved stream and writes the complex64 output; otherwise one launch
+    of the real kernel per tap plane over the stacked re / im planes."""
     if x.ndim == 1:
         return fir_decim_cc(x[None, :], taps, decim, tile_rows, precision)[0]
-    if isinstance(taps, torch.Tensor):
-        tr, ti = taps.real, taps.imag
-    else:
-        taps = np.asarray(taps)
-        tr, ti = np.real(taps), np.imag(taps)
-    planes = torch.cat([x.real, x.imag], dim=0)
-    yr = fir_decim(planes, tr, decim, tile_rows, precision)
-    yi = fir_decim(planes, ti, decim, tile_rows, precision)
-    c = x.shape[0]
-    return torch.complex(yr[:c] - yi[c:], yi[:c] + yr[c:])
+    return _decim_complex(x, taps, decim, precision, CCC)

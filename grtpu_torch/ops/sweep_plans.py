@@ -12,10 +12,16 @@ functions can be held against the card they run on:
   over tiles a block (``mtb``) and tiles a block walks (``tpb``) in bf16x3
   and bf16, the FMA route over phase groups (``kp``) and ``tpb`` in f32 and
   bf16x3;
+* the same bank as a complex64 stream in the kernels' complex modes (ccf:
+  the real taps; ccc: the taps turned by a quarter of the band): each
+  route's plans as above, and then, beside the real stream, both routes at
+  the planner's plan in every precision, the route a call takes marked;
 * the WBFM chunk (1 x 65,536, 193 taps, decimate by 8, bf16x3): the
   tensor-core route over outputs a block (``to``), and the FMA route;
 * the two decimating routes at 64 x 2^15 outputs, decimations 2 to 16 and 16
-  to 256 taps in bf16 and bf16x3, with the route ``cuda_fir._route`` takes;
+  to 256 taps in bf16 and bf16x3, with the route ``cuda_fir._route`` takes,
+  for the real stream and for both complex modes (``_dm_min_taps``'
+  crossovers);
 * the f32 cascade (16 x 2^20, 16 stages of 256 taps): tile and threads.
 
 The decimating rows are replayed from a CUDA graph of 20 launches (the
@@ -24,8 +30,10 @@ events over 3 launches.  Needs a CUDA device and nvcc.
 
     python -m grtpu_torch.ops.sweep_plans --host-cost
 
-prints only what one ``fir_decim`` call at the chunk's shape costs the host
-(batches of 1,000 calls on the host clock, no synchronize between calls).  It
+prints only what one ``fir_decim`` call at the chunk's shape, and one
+``fir_decim_cc`` call at config #1's channel-select chunk (1 x 65,536
+complex samples, 99 complex taps, decimate by 8), cost the host (batches of
+1,000 calls on the host clock, no synchronize between calls).  It
 uses the public API alone, so run by path with ``PYTHONPATH`` set to another
 checkout (``PYTHONPATH=other python grtpu_torch/ops/sweep_plans.py
 --host-cost``) it times that checkout's wrapper.
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from grtpu_torch.ops import _build, cuda_fir as cf
+from grtpu_torch.ops.fir import rotate_taps
 from grtpu_torch.utils import firdes
 
 
@@ -67,15 +76,16 @@ def graph_ms(fn, reps: int = 20) -> float:
     return cuda_ms(graph.replay, 5) / reps
 
 
-def decim_rows(lib, name, x, taps, d, nout, precision, label, plans, chosen):
+def decim_rows(name, x, taps, d, nout, precision, label, plans, chosen,
+               cplx=cf.REAL):
     """One line per plan of a decimating kernel on (x, taps)."""
     b, total = x.shape
     g, k = taps.shape
-    head = (b, total, g, k, d, 0, nout, cf._PRECISION_CODE[precision])
-    for plan in plans:
-        launch = cf._Plan(name, getattr(lib, name), head + plan)
+    for plan in plans + ([] if chosen in plans else [chosen]):
+        launch = cf._decim_launch(name, b, total, g, k, d, 0, nout, precision,
+                                  plan, cplx)
         ms = graph_ms(lambda: cf._launch_tile(x, taps, d, 0, nout, precision,
-                                              _plan=launch))
+                                              _plan=launch, cplx=cplx))
         mark = "  <- chosen" if plan == chosen else ""
         print(f"{label} {name} {precision} plan={plan}: {ms:.4f} ms{mark}",
               flush=True)
@@ -83,24 +93,55 @@ def decim_rows(lib, name, x, taps, d, nout, precision, label, plans, chosen):
 
 def host_cost(batches: int = 5, calls: int = 1000):
     """Host microseconds of one ``fir_decim`` call at the WBFM chunk (1 x
-    65,536, 193 taps, decimate by 8, bf16x3), per batch of ``calls``."""
+    65,536, 193 taps, decimate by 8, bf16x3), and of one ``fir_decim_cc``
+    call at config #1's channel-select chunk (1 x 65,536 complex samples,
+    99 complex taps, decimate by 8, bf16x3), per batch of ``calls``."""
     dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
     taps = torch.from_numpy(firdes.low_pass(
         1.0, 256e3, 15e3, 3.2e3, firdes.Window.HAMMING).astype(np.float32)).to(dev)
-    x = torch.from_numpy(np.random.RandomState(0).randn(
-        1, 65536 + len(taps) - 1).astype(np.float32)).to(dev)
-    cf.fir_decim(x, taps, 8, precision="bf16x3")
+    x = torch.from_numpy(rng.randn(1, 65536 + len(taps) - 1)
+                         .astype(np.float32)).to(dev)
+    tc = torch.from_numpy(rotate_taps(
+        firdes.low_pass(1.0, 2.048e6, 100e3, 50e3), 400e3, 2.048e6)).to(dev)
+    xc = torch.from_numpy((rng.randn(1, 65536 + len(tc) - 1)
+                           + 1j * rng.randn(1, 65536 + len(tc) - 1))
+                          .astype(np.complex64)).to(dev)
+    for label, call in (
+            (f"fir_decim 1x65536 K{len(taps)} d8 bf16x3",
+             lambda: cf.fir_decim(x, taps, 8, precision="bf16x3")),
+            (f"fir_decim_cc 1x65536 K{len(tc)} d8 bf16x3",
+             lambda: cf.fir_decim_cc(xc, tc, 8, precision="bf16x3"))):
+        call()
+        out = []
+        for _ in range(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            out.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        print(f"host cost {label} ({cf.__file__}): median "
+              f"{np.median(out):.2f} us per call, batches of {calls}: "
+              f"{' '.join(f'{v:.2f}' for v in out)}", flush=True)
+
+
+def route_times(x, taps, d, nout, precision, cplx, sms) -> str:
+    """Both decimating routes at the planner's plans on (x, taps), from a
+    CUDA graph, and the route a call takes."""
+    b, total = x.shape
+    g, k = taps.shape
     out = []
-    for _ in range(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            cf.fir_decim(x, taps, 8, precision="bf16x3")
-        out.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    print(f"host cost fir_decim 1x65536 K{len(taps)} d8 bf16x3 "
-          f"({cf.__file__}): median {np.median(out):.2f} us per call, batches "
-          f"of {calls}: {' '.join(f'{v:.2f}' for v in out)}", flush=True)
+    if precision != "f32":
+        launch = cf._decim_launch(
+            "fir_decim_mma_fwd", b, total, g, k, d, 0, nout, precision,
+            cf._decim_mma_plan(precision, d, k, b, nout, sms, cplx), cplx)
+        out.append("tensor_ms=%.4f" % graph_ms(lambda: cf._launch_tile(
+            x, taps, d, 0, nout, precision, _plan=launch, cplx=cplx)))
+    out.append("fma_ms=%.4f" % graph_ms(lambda: cf._launch_tile(
+        x, taps, d, 0, nout, precision, _fma=True, cplx=cplx)))
+    route = cf._route(precision, d, k, b, nout, cplx=cplx)
+    return " ".join(out) + f" takes {route}"
 
 
 def main():
@@ -111,7 +152,7 @@ def main():
     print(f"card: {smi}", flush=True)
     if "--host-cost" in sys.argv[1:]:
         return host_cost()
-    lib = _build.library()
+    _build.library()
     sms = cf._sm_count(0)
     rng = np.random.RandomState(0)
 
@@ -120,54 +161,77 @@ def main():
     k, d, nout = taps155.shape[1], 8, 1 << 15
     x = torch.from_numpy(rng.randn(64, nout * d + k - 1).astype(np.float32)).to(dev)
     for precision in ("bf16x3", "bf16"):
-        decim_rows(lib, "fir_decim_mma_fwd", x, taps155, d, nout, precision,
+        decim_rows("fir_decim_mma_fwd", x, taps155, d, nout, precision,
                    "bank (mtb, to, tpb)",
                    [(mtb, 128 * mtb, tpb) for mtb in (4, 2, 1)
                     for tpb in TPBS],
                    cf._decim_mma_plan(precision, d, k, 64, nout, sms))
     for precision in ("f32", "bf16x3"):
-        decim_rows(lib, "fir_decim_fwd", x, taps155, d, nout, precision,
+        decim_rows("fir_decim_fwd", x, taps155, d, nout, precision,
                    "bank (kp, tpb)",
                    [(kp, tpb) for kp in (4, 2, 1) for tpb in TPBS],
                    cf._decim_fma_plan(precision, d, k, 64, nout, sms))
-    del x
+
+    # the same bank as a complex stream, in both complex modes
+    xc = torch.complex(x, x.flip(0))
+    tsets = {cf.REAL: taps155, cf.CCF: taps155,
+             cf.CCC: torch.from_numpy(rotate_taps(
+                 taps155[0].cpu().numpy(), 0.25, 1.0))[None].to(dev)}
+    for cplx, mode in ((cf.CCF, "ccf"), (cf.CCC, "ccc")):
+        decim_rows("fir_decim_mma_fwd", xc, tsets[cplx], d, nout, "bf16x3",
+                   f"bank {mode} (mtb, to, tpb)",
+                   [(mtb, 128 * mtb, tpb) for mtb in (4, 2, 1)
+                    for tpb in TPBS],
+                   cf._decim_mma_plan("bf16x3", d, k, 64, nout, sms, cplx),
+                   cplx)
+        for precision in ("f32", "bf16x3"):
+            decim_rows("fir_decim_fwd", xc, tsets[cplx], d, nout, precision,
+                       f"bank {mode} (kp, tpb)",
+                       [(kp, tpb) for kp in (4, 2, 1) for tpb in TPBS],
+                       cf._decim_fma_plan(precision, d, k, 64, nout, sms,
+                                          cplx), cplx)
+    # real and complex side by side: both routes at the planner's plans
+    for cplx, mode in ((cf.REAL, "real"), (cf.CCF, "ccf"), (cf.CCC, "ccc")):
+        xs = x if cplx == cf.REAL else xc
+        for precision in ("f32", "bf16x3", "bf16"):
+            line = route_times(xs, tsets[cplx], d, nout, precision, cplx, sms)
+            print(f"bank routes 64x2^18 K155 d8 {mode} {precision}: {line}",
+                  flush=True)
+    del x, xc
 
     # the WBFM chunk
     taps193 = cf._tapsets(firdes.low_pass(1.0, 256e3, 15e3, 3.2e3,
                                           firdes.Window.HAMMING), dev)
     k, nout = taps193.shape[1], 8192
     x = torch.from_numpy(rng.randn(1, nout * d + k - 1).astype(np.float32)).to(dev)
-    decim_rows(lib, "fir_decim_mma_fwd", x, taps193, d, nout, "bf16x3",
+    decim_rows("fir_decim_mma_fwd", x, taps193, d, nout, "bf16x3",
                "chunk (mtb, to, tpb)",
                [(1, 32, 1), (1, 56, 1), (1, 64, 1), (1, 128, 1), (2, 256, 1)],
                cf._decim_mma_plan("bf16x3", d, k, 1, nout, sms))
-    decim_rows(lib, "fir_decim_fwd", x, taps193, d, nout, "bf16x3",
+    decim_rows("fir_decim_fwd", x, taps193, d, nout, "bf16x3",
                "chunk (kp, tpb)", [(4, 1), (2, 1), (1, 1)],
                cf._decim_fma_plan("bf16x3", d, k, 1, nout, sms))
     del x
 
-    # the two decimating routes side by side, 64 x 2^15 outputs
-    xr = torch.from_numpy(rng.randn(64, (1 << 15) * 16 + 255)
-                          .astype(np.float32)).to(dev)
+    # the two decimating routes side by side, 64 x 2^15 outputs, for the
+    # real stream and both complex modes
     nout = 1 << 15
-    for d in (2, 3, 4, 8, 16):
-        for k in (16, 32, 64, 128, 256):
-            tk = cf._tapsets(np.random.RandomState(k).randn(k) / k, dev)
-            xs = xr[:, :nout * d + k - 1].contiguous()
-            for precision in ("bf16", "bf16x3"):
-                launch = cf._Plan(
-                    "fir_decim_mma_fwd", lib.fir_decim_mma_fwd,
-                    (64, xs.shape[1], 1, k, d, 0, nout,
-                     cf._PRECISION_CODE[precision])
-                    + cf._decim_mma_plan(precision, d, k, 64, nout, sms))
-                tensor = graph_ms(lambda: cf._launch_tile(
-                    xs, tk, d, 0, nout, precision, _plan=launch))
-                fma = graph_ms(lambda: cf._launch_tile(
-                    xs, tk, d, 0, nout, precision, _fma=True))
-                print(f"routes 64x2^15 outputs d{d} K{k} {precision}: "
-                      f"tensor_ms={tensor:.4f} fma_ms={fma:.4f} "
-                      f"takes {cf._route(precision, d, k, 64, nout)}",
-                      flush=True)
+    xr = torch.from_numpy(rng.randn(64, nout * 16 + 255)
+                          .astype(np.float32)).to(dev)
+    for cplx, mode in ((cf.REAL, ""), (cf.CCF, " ccf"), (cf.CCC, " ccc")):
+        xm = xr if cplx == cf.REAL else torch.complex(xr, xr.flip(0))
+        for d in (2, 3, 4, 8, 16):
+            for k in (16, 32, 64, 128, 256):
+                tk = cf._tapsets(np.random.RandomState(k).randn(k) / k, dev)
+                if cplx == cf.CCC:
+                    tk = torch.from_numpy(rotate_taps(
+                        tk[0].cpu().numpy(), 0.25, 1.0))[None].to(dev)
+                xs = xm[:, :nout * d + k - 1].contiguous()
+                for precision in ("bf16", "bf16x3"):
+                    line = route_times(xs, tk, d, nout, precision, cplx, sms)
+                    print(f"routes 64x2^15 outputs d{d} K{k} {precision}"
+                          f"{mode}: {line}", flush=True)
+        del xm
     del xr, xs
 
     # the f32 cascade

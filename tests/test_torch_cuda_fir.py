@@ -198,6 +198,42 @@ class TestDecim:
         got_t = cf.fir_decim_cc(T(x), T(taps), d, precision="f32").numpy()
         assert rel(got_t, ref) < TOL["f32"]
 
+    @pytest.mark.parametrize("sig,d", [("ccf", 1), ("ccc", 1), ("ccf", 8),
+                                       ("ccc", 3)])
+    def test_complex_wrappers_on_the_cpu(self, sig, d):
+        """A CPU tensor runs the plain twin on the stacked planes at any
+        decimation and launches nothing; the (K,) taps may be numpy or a
+        tensor, and a ccc call with real taps equals the ccf call."""
+        rng = np.random.RandomState(70 + d)
+        k, c, n = 40, 3, 96
+        x = (rng.randn(c, n * d + k - 1)
+             + 1j * rng.randn(c, n * d + k - 1)).astype(np.complex64)
+        tr = (rng.randn(k) / k).astype(np.float32)
+        taps = tr if sig == "ccf" else (
+            tr + 1j * rng.randn(k) / k).astype(np.complex64)
+        fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+        before = dict(cf.launches)
+        got = fn(T(x), taps, d, precision="f32")
+        assert cf.launches == before
+        assert got.shape == (c, n) and got.dtype == torch.complex64
+        ref = cf.fir_decim_cplx_ref(T(x), T(taps), d, 0, n, "f32",
+                                    cf.CCF if sig == "ccf" else cf.CCC)
+        assert rel(got.numpy(), ref.numpy()) < TOL["f32"]
+        assert torch.equal(fn(T(x), T(taps), d, precision="f32"), got)
+        one = fn(T(x[0]), taps, d, precision="f32")
+        assert one.shape == (n,) and rel(one.numpy(), got[0].numpy()) < 1e-6
+        if sig == "ccc":
+            assert torch.equal(
+                cf.fir_decim_cc(T(x), T(tr), d, precision="f32"),
+                cf.fir_decim_c(T(x), tr, d, precision="f32"))
+
+    def test_complex_wrappers_check_their_input(self):
+        with pytest.raises(TypeError, match="complex64"):
+            cf.fir_decim_c(torch.zeros(1, 100), np.ones(5, np.float32), 4)
+        with pytest.raises(ValueError, match="multiple of decim"):
+            cf.fir_decim_cc(torch.zeros(1, 100 + 4, dtype=torch.complex64),
+                            np.ones(5, np.complex64), 8)
+
     def test_batch_channels(self):
         rng = np.random.RandomState(14)
         k, d, c, n = 64, 8, 3, 2048
@@ -396,20 +432,62 @@ class TestDecimTensorRoute:
             assert rel(got, ref) < TOL[precision]
 
     @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("rows", [1, 4])
     @pytest.mark.parametrize("d,k", [(2, 33), (4, 193), (8, 155)])
-    def test_vs_pallas_fir_decim_c(self, d, k, precision):
-        """The complex stream's two planes as extra rows."""
-        rng = np.random.RandomState(3000 * d + k)
+    @pytest.mark.parametrize("sig", ["ccf", "ccc"])
+    def test_vs_pallas_fir_decim_c(self, sig, d, k, rows, precision):
+        """The complex modes' plain form (fir_decim_cplx_ref: one sum a
+        stream plane and tap plane) and the complex stream's two planes as
+        extra rows of the tensor-core route's plain form, against grtpu's
+        fir_decim_c (ccf) and fir_decim_cc (ccc)."""
+        rng = np.random.RandomState(3000 * d + k + rows)
         n = 128 * d
-        x = (rng.randn(2, n + k - 1)
-             + 1j * rng.randn(2, n + k - 1)).astype(np.complex64)
+        x = (rng.randn(rows, n + k - 1)
+             + 1j * rng.randn(rows, n + k - 1)).astype(np.complex64)
         taps = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
-        ref = np.asarray(jpf.fir_decim_c(jnp.asarray(x), taps, d,
-                                         interpret=True, precision=precision))
+        if sig == "ccc":
+            taps = (taps + 1j * rng.randn(k) / np.sqrt(k)).astype(
+                np.complex64)
+        fn = jpf.fir_decim_c if sig == "ccf" else jpf.fir_decim_cc
+        ref = np.asarray(fn(jnp.asarray(x), taps, d, interpret=True,
+                            precision=precision))
+        got = cf.fir_decim_cplx_ref(T(x), T(taps), d, 0, 128, precision,
+                                    cf.CCF if sig == "ccf" else cf.CCC)
+        assert got.dtype == torch.complex64
+        assert rel(got.numpy(), ref) < TOL[precision]
         planes = T(np.concatenate([x.real, x.imag]))
-        y = cf.fir_decim_mma_ref(planes, T(taps)[None], d, 0, 128,
-                                 precision).numpy()
-        assert rel(y[:2] + 1j * y[2:], ref) < TOL[precision]
+
+        def mma(t):
+            t = T(np.ascontiguousarray(t))[None]
+            return cf.fir_decim_mma_ref(planes, t, d, 0, 128,
+                                        precision).numpy()
+
+        if sig == "ccf":
+            y = mma(taps)
+            plane = y[:rows] + 1j * y[rows:]
+        else:
+            yr, yi = mma(taps.real), mma(taps.imag)
+            plane = (yr[:rows] - yi[rows:]) + 1j * (yi[:rows] + yr[rows:])
+        assert rel(plane, ref) < TOL[precision]
+
+    @pytest.mark.parametrize("cplx", [1, 2])
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    def test_complex_modes_tapsets_and_lead(self, precision, cplx):
+        """fir_decim_cplx_ref's contract on its own: row b on tap set b % G
+        for both planes, a lead of zeros, zeros past the stream's end; the
+        four sums of ccc combined as (re.tr - im.ti) + j (re.ti + im.tr)."""
+        rng = np.random.RandomState(60 + cplx)
+        g, k, d, lead, nout, b = 2, 17, 3, 5, 40, 4
+        x = (rng.randn(b, 100) + 1j * rng.randn(b, 100)).astype(np.complex64)
+        ts = rng.randn(g, k).astype(np.float32)
+        if cplx == cf.CCC:
+            ts = (ts + 1j * rng.randn(g, k)).astype(np.complex64)
+        got = cf.fir_decim_cplx_ref(T(x), T(ts), d, lead, nout, precision,
+                                    cplx).numpy()
+        xp = np.concatenate([np.zeros((b, lead)), x, np.zeros((b, 200))], 1)
+        want = np.array([[np.dot(ts[r % g][::-1], xp[r, i * d:i * d + k])
+                          for i in range(nout)] for r in range(b)])
+        assert rel(got, want) < TOL[precision]
 
     def test_short_stream_and_bf16_resident_input(self):
         """A stream shorter than one window reads zeros past its end, and a
@@ -505,6 +583,70 @@ class TestRoutesAndPlans:
             if precision != "f32":
                 mtb, to, tpb = cf._decim_mma_plan(precision, d, k, b, nout)
                 assert cf._decim_mma_smem(precision, 4, k, d, mtb) <= 232448
+
+    @pytest.mark.parametrize("cplx", [1, 2])
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("d", [2, 3, 4, 8, 16])
+    @pytest.mark.parametrize("k", [16, 193, 4097])
+    def test_complex_plans_fit_shared_memory(self, k, d, precision, cplx):
+        """At decimations 2 to 16 and up to 4097 taps a complex stream takes
+        one decimating launch in its complex mode, whose block fits the
+        232,448 bytes a block may opt into (without the ring where the ring
+        does not fit; the bytes are the launch's either way)."""
+        for b, nout in ((1, 8192), (64, 1 << 15)):
+            route = cf._route(precision, d, k, b, nout, cplx=cplx)
+            assert route in ("decim_mma", "decim_fma")
+            if route == "decim_mma":
+                mtb, to, tpb = cf._decim_mma_plan(precision, d, k, b, nout,
+                                                  cplx=cplx)
+                smem = cf._decim_mma_smem(precision, 8, k, d, mtb, cplx)
+            else:
+                kp, tpb = cf._decim_fma_plan(precision, d, k, b, nout,
+                                             cplx=cplx)
+                smem = cf._decim_smem(precision, 8, k, d, kp, cplx)
+            assert smem <= 232448
+
+    @pytest.mark.parametrize("precision,d,k,b,nout,cplx,want", [
+        ("bf16x3", 1, 99, 1, 65536, 2, "planes"),
+        ("f32", 1, 4097, 16, 1 << 20, 1, "planes"),
+        ("bf16", 1, 64, 2, 100, 1, "planes"),
+        ("bf16x3", 8, 155, 64, 1 << 15, 1, "decim_mma"),
+        ("bf16x3", 8, 99, 1, 65536, 2, "decim_mma"),
+        ("f32", 8, 155, 64, 1 << 15, 2, "decim_fma"),
+        ("bf16x3", 2, 96, 4, 4096, 2, "decim_mma"),
+        ("bf16x3", 2, 9, 1, 32, 2, "decim_fma"),
+        ("bf16", 8, 15, 4, 4096, 1, "decim_fma"),
+        ("f32", 16, 4097, 2, 300, 2, "decim_fma"),
+        ("f32", 3, 60000, 2, 500, 1, "planes"),
+        ("bf16x3", 8, 155, 0, 100, 2, "empty"),
+    ])
+    def test_complex_route(self, precision, d, k, b, nout, cplx, want):
+        """Decimation 1 and windows too large for the decimating kernels
+        take the plane path, by shape; every other complex call one launch."""
+        assert cf._route(precision, d, k, b, nout, cplx=cplx) == want
+
+    def test_complex_ring_only_where_it_fits(self):
+        """The three stages of raw complex samples are dropped only where
+        the block would not fit with them: the bank keeps its ring, 4097
+        taps at decimation 16 take their windows from device memory."""
+        ring = 3 * cf._ring_stage_bytes(255 * 8 + 155, 8)
+        assert cf._decim_smem("f32", 8, 155, 8, 4, cf.CCC) > ring
+        long_ = cf._decim_smem("f32", 8, 4097, 16, 4, cf.CCC)
+        ring16 = 3 * cf._ring_stage_bytes(255 * 16 + 4097, 8)
+        assert long_ + ring16 > cf._SMEM_OPTIN >= long_
+
+    def test_complex_plans_are_kept(self):
+        """One plan per shape and stream mode, computed once; the real and
+        the complex plan of a shape are kept apart."""
+        for fn in (cf._decim_mma_plan, cf._decim_fma_plan):
+            fn.cache_clear()
+            args = ("bf16x3", 8, 155, 64, 1 << 15)
+            first = fn(*args, cplx=cf.CCC)
+            assert fn(*args, cplx=cf.CCC) is first
+            assert fn.cache_info().hits == 1 and fn.cache_info().misses == 1
+            fn(*args)
+            assert fn.cache_info().misses == 2
+        assert "cplx" in cf._launch_plan.__wrapped__.__code__.co_varnames
 
     def test_plans_are_kept(self):
         """The same key gives the same plan object, computed once."""

@@ -188,7 +188,7 @@ def test_launch_counts(dev):
     cf.fir_long(randn(dev, 100 + 8), randn(dev, 9), precision="f32")
     after = {n: cf.launches[n] - before[n] for n in cf.launches}
     assert after == {"fir_tile_fwd": 1, "fir_toeplitz_fwd": 0,
-                     "fir_decim_fwd": 2, "fir_decim_mma_fwd": 1,
+                     "fir_decim_fwd": 1, "fir_decim_mma_fwd": 1,
                      "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0,
                      "viterbi_fwd": 0, "dfe_feedback_fwd": 0}
 
@@ -205,6 +205,7 @@ ODD_DECIM_CASES = [
     (2100, 3, 2, 500, 0, 1, None),       # long taps at an odd decimation
     (4097, 16, 2, 300, 0, 1, None),
     (17, 5, 1, 33, 0, 1, None),
+    (8193, 16, 2, 200, 0, 1, None),      # no ring: windows from memory
 ]
 
 
@@ -229,17 +230,27 @@ def test_decim_fma_route(dev, precision, k, d, b, nout, lead, g, total):
         assert torch.equal(got, got16)
 
 
-def mma_route(x, ts, d, lead, nout, precision):
-    """fir_decim_mma_fwd whatever the tap count."""
-    from grtpu_torch.ops._build import library
-
+def mma_route(x, ts, d, lead, nout, precision, cplx=0, plan=None):
+    """fir_decim_mma_fwd whatever the tap count (``plan``: another (mtb,
+    to, tpb) than the planner's)."""
     b, total = x.shape
     g, k = ts.shape
-    plan = cf._Plan("fir_decim_mma_fwd", library().fir_decim_mma_fwd,
-                    (b, total, g, k, d, lead, nout,
-                     cf._PRECISION_CODE[precision])
-                    + cf._decim_mma_plan(precision, d, k, b, nout))
-    return cf._launch_tile(x, ts, d, lead, nout, precision, _plan=plan)
+    plan = cf._decim_launch(
+        "fir_decim_mma_fwd", b, total, g, k, d, lead, nout, precision,
+        plan or cf._decim_mma_plan(precision, d, k, b, nout, cplx=cplx), cplx)
+    return cf._launch_tile(x, ts, d, lead, nout, precision, _plan=plan,
+                           cplx=cplx)
+
+
+def fma_route(x, ts, d, lead, nout, precision, cplx=0, plan=None):
+    """fir_decim_fwd (``plan``: another (kp, tpb) than the planner's)."""
+    b, total = x.shape
+    g, k = ts.shape
+    plan = cf._decim_launch(
+        "fir_decim_fwd", b, total, g, k, d, lead, nout, precision,
+        plan or cf._decim_fma_plan(precision, d, k, b, nout, cplx=cplx), cplx)
+    return cf._launch_tile(x, ts, d, lead, nout, precision, _plan=plan,
+                           cplx=cplx)
 
 
 @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
@@ -275,15 +286,10 @@ def test_decim_tensor_core_route(dev, precision, k, d, b, nout, lead, g,
                                         (2, 256, 2), (4, 512, 5)])
 def test_decim_tensor_core_plans(dev, precision, mtb, to, tpb):
     """Every block shape of the tensor-core route gives the same outputs."""
-    from grtpu_torch.ops._build import library
-
     k, d, b, nout = 155, 8, 3, 3000
     x = randn(dev, b, nout * d + k - 1, seed=1)
     ts = randn(dev, 1, k, seed=2) / np.sqrt(k)
-    plan = cf._Plan("fir_decim_mma_fwd", library().fir_decim_mma_fwd,
-                    (b, x.shape[1], 1, k, d, 0, nout,
-                     cf._PRECISION_CODE[precision], mtb, to, tpb))
-    got = cf._launch_tile(x, ts, d, 0, nout, precision, _plan=plan)
+    got = mma_route(x, ts, d, 0, nout, precision, plan=(mtb, to, tpb))
     ref = cf.fir_tile_ref(x, ts, d, 0, nout, precision)
     assert rel(got, ref) < TOL[precision]
 
@@ -329,13 +335,15 @@ def test_shared_memory_sizes_match_the_library(dev):
     lib = library()
     for precision, code in cf._PRECISION_CODE.items():
         for k, d in ((155, 8), (193, 8), (33, 2), (4097, 16), (7, 5), (200, 4),
-                     (40, 3)):
+                     (40, 3), (99, 8), (96, 2), (4097, 8), (2100, 3)):
             for v in (1, 2, 4):
-                for es in (4, 2):
-                    assert lib.fir_decim_smem(code, es == 2, k, d, v) == \
-                        cf._decim_smem(precision, es, k, d, v)
-                    assert lib.fir_decim_mma_smem(code, es == 2, k, d, v) == \
-                        cf._decim_mma_smem(precision, es, k, d, v)
+                for es, cplx in ((4, 0), (2, 0), (8, 1), (8, 2)):
+                    assert lib.fir_decim_smem(code, es == 2, k, d, v,
+                                              cplx) == \
+                        cf._decim_smem(precision, es, k, d, v, cplx)
+                    assert lib.fir_decim_mma_smem(code, es == 2, k, d, v,
+                                                  cplx) == \
+                        cf._decim_mma_smem(precision, es, k, d, v, cplx)
         for k, s, t in ((256, 16, 16384), (5, 2, 256), (64, 3, 8192)):
             assert lib.fir_cascade_smem(code, k, s, t) == \
                 cf._cascade_smem(precision, k, s, t)
@@ -371,3 +379,210 @@ def test_wbfm_kernel_graph_matches_plain(dev):
             g.connect(pin, WfmRcv(fs, 8), pout)
         outs.append(StreamExecutor(g, chunk_size=8192, device=dev).run(iq))
     assert rel(outs[0], outs[1]) < TOL["bf16x3"]
+
+
+# ------------------------------------------------------- the complex modes
+def crandn(dev, *shape, seed=0):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(*shape) + 1j * rng.randn(*shape))
+                            .astype(np.complex64)).to(dev)
+
+
+def complex_taps(dev, cplx, g, k, seed):
+    """(G, K) float32 (ccf) or complex64 (ccc) taps, unit gain scale."""
+    t = crandn(dev, g, k, seed=seed) / np.sqrt(k)
+    return t.real.contiguous() if cplx == cf.CCF else t
+
+
+def plane_path(x, ts, d, lead, nout, precision, cplx):
+    """The real kernel over the stacked re / im planes: the path the
+    complex modes replace (row r of 2B plane rows on the tap set of complex
+    row r % B, so every tap set goes as it goes in the complex mode)."""
+    b = x.shape[0]
+    g = ts.shape[0]
+    planes = torch.cat([x.real, x.imag]).contiguous()
+    per_row = ts[torch.arange(b, device=x.device) % g]
+
+    def real(t):
+        return cf._tile(planes, t.contiguous(), d, lead, nout, precision)
+
+    if cplx == cf.CCF:
+        y = real(per_row)
+        return torch.complex(y[:b], y[b:])
+    yr, yi = real(per_row.real), real(per_row.imag)
+    return torch.complex(yr[:b] - yi[b:], yi[:b] + yr[b:])
+
+
+COMPLEX_CASES = [
+    # k, d, b, nout, lead, g, total (None: the exact window)
+    (155, 8, 3, 4097, 0, 1, None),        # several tiles, a ragged last one
+    (193, 8, 1, 8192, 0, 1, None),        # a lone chunk
+    (99, 8, 2, 1001, 98, 2, None),        # a lead, two complex tap sets
+    (33, 2, 4, 777, 7, 2, None),
+    (40, 3, 3, 600, 39, 3, None),         # odd decimation, three tap sets
+    (64, 4, 2, 1000, 0, 1, 4000 + 63 + 2),  # odd row length: 8-byte rows
+    (17, 5, 2, 333, 3, 1, None),          # a decimation with no template
+    (64, 8, 2, 50, 500, 1, 100),          # the stream ends inside a window
+    (96, 2, 4, 8192, 0, 1, None),         # the 4 x 8k cc case
+    (4097, 16, 2, 300, 0, 1, None),       # no ring: windows from memory
+]
+
+
+def complex_params():
+    """(case, precision, route, cplx) for every forced route that has a
+    plan at the case's shape (the bf16x3 FMA route's ccc planes do not fit
+    at 4097 taps and decimation 16; that call takes the tensor cores)."""
+    out = []
+    for case in COMPLEX_CASES:
+        k, d, b, nout = case[:4]
+        for precision, route in (("f32", "fma"), ("bf16x3", "fma"),
+                                 ("bf16", "fma"), ("bf16x3", "mma"),
+                                 ("bf16", "mma")):
+            planner = (cf._decim_mma_plan if route == "mma"
+                       else cf._decim_fma_plan)
+            for cplx in (1, 2):
+                if planner(precision, d, k, b, nout, cplx=cplx) is not None:
+                    out.append(case + (precision, route, cplx))
+    return out
+
+
+@pytest.mark.parametrize("k,d,b,nout,lead,g,total,precision,route,cplx",
+                         complex_params())
+def test_complex_modes(dev, precision, route, cplx, k, d, b, nout, lead, g,
+                       total):
+    """Both decimating kernels in both complex modes against their plain
+    form and against the real kernel over the stacked planes, at odd sizes:
+    one launch, the interleaved complex64 stream in and out."""
+    total = total or nout * d + k - 1 - lead
+    x = crandn(dev, b, total, seed=k + d)
+    ts = complex_taps(dev, cplx, g, k, seed=k + 1)
+    fn = mma_route if route == "mma" else fma_route
+    name = "fir_decim_mma_fwd" if route == "mma" else "fir_decim_fwd"
+    before = dict(cf.launches)
+    got = fn(x, ts, d, lead, nout, precision, cplx)
+    torch.cuda.synchronize()
+    assert {n: cf.launches[n] - before[n] for n in cf.launches
+            if cf.launches[n] != before[n]} == {name: 1}
+    assert got.dtype == torch.complex64 and got.shape == (b, nout)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    ref = cf.fir_decim_cplx_ref(x, ts, d, lead, nout, precision, cplx)
+    assert rel(got, ref) < TOL[precision]
+    assert rel(got, plane_path(x, ts, d, lead, nout, precision, cplx)) < \
+        TOL[precision]
+
+
+@pytest.mark.parametrize("cplx", [1, 2])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("plan", [(1, 8, 1), (1, 56, 3), (1, 128, 16),
+                                  (2, 256, 2), (4, 512, 5)])
+def test_complex_tensor_core_plans(dev, precision, cplx, plan):
+    """Every block shape (mtb, to, tpb) of the tensor-core route gives the
+    same outputs in the complex modes."""
+    k, d, b, nout = 155, 8, 3, 3000
+    x = crandn(dev, b, nout * d + k - 1, seed=1)
+    ts = complex_taps(dev, cplx, 2, k, seed=2)
+    got = mma_route(x, ts, d, 0, nout, precision, cplx, plan)
+    ref = cf.fir_decim_cplx_ref(x, ts, d, 0, nout, precision, cplx)
+    assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("cplx", [1, 2])
+@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+@pytest.mark.parametrize("plan", [(4, 1), (4, 7), (2, 3), (1, 1), (1, 16)])
+def test_complex_fma_plans(dev, precision, cplx, plan):
+    """Every (kp, tpb) of the FMA route gives the same outputs in the
+    complex modes."""
+    k, d, b, nout = 155, 8, 3, 3000
+    x = crandn(dev, b, nout * d + k - 1, seed=3)
+    ts = complex_taps(dev, cplx, 2, k, seed=4)
+    got = fma_route(x, ts, d, 0, nout, precision, cplx, plan)
+    ref = cf.fir_decim_cplx_ref(x, ts, d, 0, nout, precision, cplx)
+    assert rel(got, ref) < TOL[precision]
+
+
+@pytest.mark.parametrize("sig", ["ccf", "ccc"])
+@pytest.mark.parametrize("d", [2, 8])
+def test_complex_wrappers_one_launch(dev, sig, d):
+    """fir_decim_c / fir_decim_cc on the card at decimation > 1: one launch
+    of the route _route names, no copy of contiguous taps on the device,
+    numpy taps and a misaligned view of the stream alike; decimation 1 the
+    plane path."""
+    k, c, n = 96, 4, 2048
+    flat = crandn(dev, c * (n * d + k - 1) + 1, seed=d)
+    x = flat[1:].view(c, n * d + k - 1)       # rows start 8 bytes off
+    cplx = cf.CCF if sig == "ccf" else cf.CCC
+    ts = complex_taps(dev, cplx, 1, k, seed=5)[0]
+    fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+    route = cf._route("bf16x3", d, k, c, n, cplx=cplx)
+    name = "fir_decim_mma_fwd" if route == "decim_mma" else "fir_decim_fwd"
+    before = dict(cf.launches)
+    got = fn(x, ts, d)
+    assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+            if cf.launches[nm] != before[nm]} == {name: 1}
+    assert torch.equal(fn(x, ts.cpu().numpy(), d), got)
+    ref = cf.fir_decim_cplx_ref(x, ts, d, 0, n, "bf16x3", cplx)
+    assert rel(got, ref) < TOL["bf16x3"]
+    assert cf._complex_taps(ts, x.device, cplx) is ts
+    y1 = fn(x[:, :n + k - 1], ts, 1, precision="f32")
+    assert rel(y1, cf.fir_decim_cplx_ref(x[:, :n + k - 1], ts, 1, 0, n,
+                                         "f32", cplx)) < TOL["f32"]
+
+
+def test_complex_modes_refuse_a_bf16_stream(dev):
+    """The C entries refuse a complex mode on a bf16 stream, and a mode
+    they do not know, instead of computing something else."""
+    from grtpu_torch.ops._build import library
+
+    lib = library()
+    x = torch.zeros(1, 100, dtype=torch.bfloat16, device=dev)
+    y = torch.empty(1, 20, dtype=torch.complex64, device=dev)
+    t = torch.zeros(1, 9, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cplx in (1, 2, 3, -1):
+        assert lib.fir_decim_fwd(x.data_ptr(), 1, t.data_ptr(), y.data_ptr(),
+                                 1, 100, 1, 9, 4, 0, 20, 1, 4, 1, cplx,
+                                 stream) != 0
+        assert lib.fir_decim_mma_fwd(x.data_ptr(), 1, t.data_ptr(),
+                                     y.data_ptr(), 1, 100, 1, 9, 4, 0, 20, 1,
+                                     1, 8, 1, cplx, stream) != 0
+    for cplx in (3, -1):
+        assert lib.fir_decim_fwd(y.data_ptr(), 0, t.data_ptr(), y.data_ptr(),
+                                 1, 20, 1, 9, 4, 0, 2, 0, 4, 1, cplx,
+                                 stream) != 0
+
+
+def test_firfilter_ccc_graph(dev):
+    """FirFilter("ccc", impl="kernel") in a graph: one fir_decim_* launch a
+    chunk in both run modes, device_loop torch.equal to eager, and within
+    bf16x3's tolerance of impl="mxu"."""
+    from grtpu_torch import Graph, StreamExecutor
+    from grtpu_torch.runtime.block import Port
+    from grtpu_torch.blocks.filter import FirFilter
+    from grtpu_torch.ops.fir import rotate_taps
+    from grtpu_torch.utils import firdes
+
+    fs, chunk, nchunks = 2.048e6, 16384, 4
+    taps = rotate_taps(firdes.low_pass(1.0, fs, 100e3, 50e3), 400e3, fs)
+    x = crandn(dev, chunk * nchunks, seed=9)
+
+    def run(impl, device_loop=False):
+        g = Graph()
+        pin = g.add_input(Port(torch.complex64))
+        pout = g.add_output(Port(torch.complex64))
+        g.connect(pin, FirFilter(8, taps, "ccc", impl=impl), pout)
+        ex = StreamExecutor(g, chunk_size=chunk, device=dev)
+        for name in cf.launches:
+            cf.launches[name] = 0
+        y = ex.run(x, device_loop=device_loop)
+        torch.cuda.synchronize()
+        return y, dict(cf.launches)
+
+    eager, n_eager = run("kernel")
+    loop, n_loop = run("kernel", True)
+    assert torch.equal(eager, loop)
+    for n in (n_eager, n_loop):
+        assert sum(n.values()) == nchunks
+        assert n["fir_decim_mma_fwd"] == nchunks
+    mxu, n_mxu = run("mxu")
+    assert sum(n_mxu.values()) == 0
+    assert rel(eager, mxu) < TOL["bf16x3"]
