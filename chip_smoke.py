@@ -29,7 +29,13 @@ Phases (each raises on failure; nothing is caught):
      64 channels as a complex64 stream, with the 155 taps and with them
      turned by a quarter of the band; 4 x 16k K200 d4; 4 x 8k K96 d2) must
      make exactly one launch a call, the kernels' complex mode reading the
-     interleaved stream; their twin is cuda_fir.fir_decim_cplx_ref.
+     interleaved stream; their twin is cuda_fir.fir_decim_cplx_ref.  The
+     same bank at decimation 1 takes the "planes" route (the real kernel
+     over the stacked re / im planes, one launch a tap plane) with three
+     tap sets, channel c on set c % 3 for both planes, held against the
+     same twin; it prints its route, its launches a call, and its time
+     beside the one-set call's, in turns, with the card's name and power
+     limit.
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
@@ -512,21 +518,88 @@ def two_modes(torch, label, build, inputs, items, unit="Msamples/s",
     return outs["eager"], rate, exs["device_loop"], launches
 
 
+def planes_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi):
+    """Phase 3's "planes" cases: fir_decim_c and fir_decim_cc at decimation
+    1 on the WBFM bank's complex stream ``xc`` (64 x 2^18 outputs, ``k``
+    taps), where no complex-mode launch exists and the real kernel runs
+    over the stacked re / im planes.  Three tap sets: 64 % 3 = 1, so the im
+    plane of channel c is row 64 + c, whose own set (c + 1) % 3 is not
+    c % 3, and the sets are laid out one a plane row before the call.  The
+    same call with one set (no layout) is timed beside it, in turns.  ccc:
+    each set turned by a quarter of the band.  The library call is conv1d
+    grouped by channel (G = 3) or over the batch (G = 1)."""
+    sets = np.stack([firdes.low_pass(1.0, QUAD_RATE, f, 4e3)
+                     for f in (15e3, 12e3, 9e3)]).astype(np.float32)
+    if sets.shape != (3, k):
+        fail(f"the planes case's tap sets are {sets.shape}, not (3, {k})")
+    n = xc.shape[1] - (k - 1)
+    rows = torch.arange(xc.shape[0], device=xc.device)
+    planes = torch.cat([xc.real, xc.imag])
+
+    def grouped_conv1d(tapsets):
+        w = tapsets.to(xc.dtype)[rows % tapsets.shape[0]].flip(-1)[:, None]
+        xin = xc[None]
+        return lambda: torch.nn.functional.conv1d(xin, w,
+                                                  groups=xc.shape[0])
+
+    real3 = torch.from_numpy(sets).to(xc.device)
+    turned3 = torch.from_numpy(np.stack(
+        [fir.rotate_taps(t, CHANNEL_TURN, 1.0) for t in sets])).to(xc.device)
+    for sig, cplx, per, taps3 in (("c", cf.CCF, 2, real3),
+                                  ("cc", cf.CCC, 4, turned3)):
+        fn = getattr(cf, f"fir_decim_{sig}")
+        for prec in ("f32", "bf16x3"):
+            route = cf._route(prec, 1, k, xc.shape[0], n, cplx=cplx)
+            if route != "planes":
+                fail(f"fir_decim_{sig} at decimation 1 takes {route}")
+            kernel = {"tile": "fir_tile_fwd", "toeplitz": "fir_toeplitz_fwd"}[
+                cf._route(prec, 1, k, 2 * xc.shape[0], n)]
+            ms = {}
+            for g, taps in ((3, taps3), (1, taps3[0])):
+                case(f"fir_decim_{sig} 64x2^18 K{k} d1 G{g}", kernel, prec,
+                     lambda: fn(xc, taps, 1, precision=prec),
+                     lambda: cf.fir_decim_cplx_ref(xc, taps, 1, 0, n, prec,
+                                                   cplx),
+                     flop=2 * k * per * xc.shape[0] * n,
+                     nbytes=8 * xc.numel() + 4 * (per // 2) * k * g
+                     + 8 * xc.shape[0] * n,
+                     reps=3, library=grouped_conv1d(taps) if g > 1
+                     else conv1d(xc, taps, 1),
+                     lib_reps=3, launches_a_call=per // 2, route=route)
+            ms[3], ms[1] = in_turns(
+                lambda: fn(xc, taps3, 1, precision=prec),
+                lambda: fn(xc, taps3[0], 1, precision=prec), 5, 5, rounds=3)
+            # the real kernel's launches alone, on planes stacked beforehand:
+            # the rest of a call is the stacking and the complex64 output
+            tplanes = [cf._tapsets(t, xc.device) for t in (
+                (taps3[0],) if cplx == cf.CCF
+                else (taps3[0].real, taps3[0].imag))]
+            alone = launch_ms(lambda: [cf.fir_decim(planes, t, 1,
+                                                    precision=prec)
+                                       for t in tplanes], reps=5, rounds=3)
+            print(f"planes fir_decim_{sig} 64x2^18 K{k} d1 {prec}: G=3 "
+                  f"{ms[3]:.4f} ms, G=1 {ms[1]:.4f} ms a call (in turns, "
+                  f"median of 3 rounds); {kernel} {per // 2} a call, "
+                  f"{alone:.4f} ms alone on the stacked planes; {smi}",
+                  flush=True)
+
+
 def check_kernels(torch, cf, fir, firdes, _build):
     """Phase 3: every kernel case against its twin; returns per-case rows."""
     dev = torch.device("cuda")
     rows = []
+    smi = gpu_line()
 
     def case(name, kernel, precision, run, twin, flop, nbytes, reps=10,
              twin_reps=3, library=None, lib_reps=10, fma=None, graphed=False,
-             rounds=1, one_launch=False):
+             rounds=1, launches_a_call=None, route=None):
         before = dict(cf.launches)
         got = run()
         launched = {n: cf.launches[n] - before[n] for n in cf.launches
                     if cf.launches[n] != before[n]}
-        if one_launch and launched != {kernel: 1}:
+        if launches_a_call and launched != {kernel: launches_a_call}:
             fail(f"{name} {precision}: one call launched {launched}, "
-                 f"expected {kernel} once")
+                 f"expected {kernel} {launches_a_call} times")
         ref = twin()
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -566,7 +639,8 @@ def check_kernels(torch, cf, fir, firdes, _build):
                f"{library_ms:.4f} (conv1d, rel_err vs twin {lib_err:.1e})")
         print(f"kernel {name:28s} {kernel:19s} {precision:7s} "
               + (f"launches_a_call={sum(launched.values())} "
-                 if one_launch else "")
+                 if launches_a_call else "")
+              + (f"route={route} " if route else "")
               + f"max_rel_err={rel_err:.3e} (tol {TOL[precision]:g}) "
               f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
@@ -681,10 +755,11 @@ def check_kernels(torch, cf, fir, firdes, _build):
                  flop=2 * k * per * 64 * nout,
                  nbytes=8 * xc.numel() + 4 * (per // 2) * k + 8 * 64 * nout,
                  reps=5, library=conv1d(xc, taps_c, AUDIO_DECIM), lib_reps=5,
-                 one_launch=True,
+                 launches_a_call=1,
                  fma=None if prec == "f32" else
                  (lambda: cf._launch_tile(xc, taps_c, AUDIO_DECIM, 0, nout,
                                           prec, _fma=True, cplx=cplx)))
+    planes_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi)
     del xc
 
     # short filters at decimation 8 and 2: the two decimating routes side by
@@ -722,7 +797,7 @@ def check_kernels(torch, cf, fir, firdes, _build):
          lambda: cf.fir_decim_c(xc, tr, d, precision="f32"),
          lambda: fir.fir_filter(xc, tr, d, "f32"),
          flop=2 * k * 2 * 4 * 4096, nbytes=8 * xc.numel() + 4 * k + 8 * 4 * 4096,
-         library=conv1d(xc, tr, d), one_launch=True)
+         library=conv1d(xc, tr, d), launches_a_call=1)
     k, d = 96, 2
     xc = torch.from_numpy((rng.randn(4, 4096 * d + k - 1)
                            + 1j * rng.randn(4, 4096 * d + k - 1)
@@ -737,7 +812,7 @@ def check_kernels(torch, cf, fir, firdes, _build):
          lambda: cf.fir_decim_cc(xc, tc, d, precision="bf16x3"),
          lambda: fir.fir_filter(xc, tc, d, "bf16x3"),
          flop=2 * k * 4 * 4 * 4096, nbytes=8 * xc.numel() + 8 * k + 8 * 4 * 4096,
-         library=conv1d(xc, tc, d), one_launch=True)
+         library=conv1d(xc, tc, d), launches_a_call=1)
     del xc
 
     # the headline workload (bench.py): 16 pipes x 2^20 samples, 16 stages

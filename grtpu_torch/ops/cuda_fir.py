@@ -26,7 +26,8 @@ over the CUDA C++ kernels in ``grtpu_torch/csrc``:
   in shared memory.  That is ``fir_decim_c`` and ``fir_decim_cc`` at
   decimation > 1; at decimation 1 (and for windows too large for the
   decimating kernels) they run the real FIR over the stacked re / im
-  planes, :func:`_route`'s "planes".
+  planes, :func:`_route`'s "planes".  Every route gives channel c tap set
+  c % G of (G, K) taps for both its planes.
 * ``fir_cascade_fwd``  — S chained FIRs with the same taps from zero
   history, the stages resident in shared memory, float32 FMAs (f32).
 * ``fir_cascade_mma_fwd`` — the same cascade in bf16 and bf16x3, each stage
@@ -891,11 +892,15 @@ def _complex_taps(taps, device, cplx: int) -> torch.Tensor:
 
 def _decim_complex(x, taps, decim, precision, cplx):
     """``fir_decim_c`` (ccf) and ``fir_decim_cc`` (ccc) on a (C, n + K - 1)
-    complex64 stream.  A ccc call with real taps takes ccf, whose sums are
-    the same (the ti plane is zero).  On the card at decimation > 1: one
-    launch of a decimating kernel in its complex mode.  Elsewhere (the CPU,
-    and :func:`_route`'s "planes" by shape) the real FIR over the stacked
-    re / im planes: ccf one pass, ccc one a tap plane."""
+    complex64 stream, channel c on tap set c % G of (G, K) taps for both
+    its planes, on every route.  A ccc call with real taps takes ccf, whose
+    sums are the same (the ti plane is zero).  On the card at decimation >
+    1: one launch of a decimating kernel in its complex mode.  Elsewhere
+    (the CPU, and :func:`_route`'s "planes" by shape) the real FIR over the
+    stacked re / im planes, rows c and C + c: ccf one pass, ccc one a tap
+    plane.  The real FIR gives row r set r % G, which is c % G for row
+    C + c only where G divides C; otherwise the sets are first laid out one
+    a plane row."""
     _check_precision(precision)
     if x.dtype != torch.complex64:
         raise TypeError(f"expected a complex64 stream, got {x.dtype}")
@@ -918,6 +923,9 @@ def _decim_complex(x, taps, decim, precision, cplx):
         return _launch_tile(x.contiguous(), tapsets, d, 0, n // d, precision,
                             cplx=cplx)
     planes = torch.cat([x.real, x.imag], dim=0)
+    if taps.ndim == 2 and c % taps.shape[0]:
+        rows = torch.arange(c, device=x.device) % taps.shape[0]
+        taps = _complex_taps(taps, x.device, cplx)[rows].repeat(2, 1)
     if cplx == CCF:
         y = fir_decim(planes, taps, d, precision=precision)
         return torch.complex(y[:c], y[c:])
@@ -930,10 +938,10 @@ def fir_decim_c(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
                 precision: str = "bf16x3") -> torch.Tensor:
     """Complex-stream real-taps (ccf) FIR with optional decimation: x (C,
     n + K - 1) or (n + K - 1,) complex64 carrying K-1 history, n // decim
-    outputs.  On the card at decimation > 1 one launch reads the
-    interleaved stream and writes the complex64 output (row c on tap set
-    c % G of (G, K) taps); otherwise the two real planes ride the real
-    kernel as extra batch rows."""
+    outputs.  Row c takes tap set c % G of (G, K) taps, for its re and im
+    planes alike, on every route.  On the card at decimation > 1 one launch
+    reads the interleaved stream and writes the complex64 output; otherwise
+    the two real planes ride the real kernel as extra batch rows."""
     if x.ndim == 1:
         return fir_decim_c(x[None, :], taps, decim, tile_rows, precision)[0]
     return _decim_complex(x, taps, decim, precision, CCF)
@@ -941,7 +949,8 @@ def fir_decim_c(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
 
 def fir_decim_cc(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
                  precision: str = "bf16x3") -> torch.Tensor:
-    """Complex-stream complex-taps (ccc): (r*tr - i*ti) + j(r*ti + i*tr).
+    """Complex-stream complex-taps (ccc): (r*tr - i*ti) + j(r*ti + i*tr),
+    row c on tap set c % G of (G, K) taps for both planes, on every route.
     On the card at decimation > 1 one launch over both tap planes reads the
     interleaved stream and writes the complex64 output; otherwise one launch
     of the real kernel per tap plane over the stacked re / im planes."""

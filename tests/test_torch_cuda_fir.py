@@ -227,6 +227,35 @@ class TestDecim:
                 cf.fir_decim_cc(T(x), T(tr), d, precision="f32"),
                 cf.fir_decim_c(T(x), tr, d, precision="f32"))
 
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+    @pytest.mark.parametrize("g,c,d", [(2, 3, 1), (2, 3, 3), (3, 5, 1),
+                                       (3, 5, 3), (3, 6, 1), (2, 4, 3)])
+    def test_complex_tapsets_per_channel(self, g, c, d, precision):
+        """(G, K) taps on a complex stream: channel c takes set c % G for
+        both its re and im planes, where C is no multiple of G too.  Held
+        against a per-row float64 sum and against fir_decim_cplx_ref, for
+        ccf and ccc, numpy taps (complex128 for ccc) and tensor taps."""
+        rng = np.random.RandomState(100 * g + 10 * c + d)
+        k, n = 37, 96
+        x = (rng.randn(c, n * d + k - 1)
+             + 1j * rng.randn(c, n * d + k - 1)).astype(np.complex64)
+        tr = rng.randn(g, k) / np.sqrt(k)
+        for fn, cplx, taps in (
+                (cf.fir_decim_c, cf.CCF, tr.astype(np.float32)),
+                (cf.fir_decim_cc, cf.CCC,
+                 tr + 1j * rng.randn(g, k) / np.sqrt(k))):
+            xd = x.astype(np.complex128)
+            want = np.array([[np.dot(taps[r % g][::-1], xd[r, i * d:i * d + k])
+                              for i in range(n)] for r in range(c)])
+            tt = T(taps.astype(np.complex64 if cplx == cf.CCC
+                               else np.float32))
+            ref = cf.fir_decim_cplx_ref(T(x), tt, d, 0, n, precision, cplx)
+            for arg in (taps, tt):
+                got = fn(T(x), arg, d, precision=precision)
+                assert got.shape == (c, n) and got.dtype == torch.complex64
+                assert rel(got.numpy(), want) < TOL[precision]
+                assert rel(got.numpy(), ref.numpy()) < TOL[precision]
+
     def test_complex_wrappers_check_their_input(self):
         with pytest.raises(TypeError, match="complex64"):
             cf.fir_decim_c(torch.zeros(1, 100), np.ones(5, np.float32), 4)

@@ -418,6 +418,8 @@ COMPLEX_CASES = [
     (155, 8, 3, 4097, 0, 1, None),        # several tiles, a ragged last one
     (193, 8, 1, 8192, 0, 1, None),        # a lone chunk
     (99, 8, 2, 1001, 98, 2, None),        # a lead, two complex tap sets
+    (99, 8, 3, 1001, 98, 2, None),        # channel 2 on set 0: G does not
+                                          # divide the channels
     (33, 2, 4, 777, 7, 2, None),
     (40, 3, 3, 600, 39, 3, None),         # odd decimation, three tap sets
     (64, 4, 2, 1000, 0, 1, 4000 + 63 + 2),  # odd row length: 8-byte rows
@@ -526,6 +528,33 @@ def test_complex_wrappers_one_launch(dev, sig, d):
     y1 = fn(x[:, :n + k - 1], ts, 1, precision="f32")
     assert rel(y1, cf.fir_decim_cplx_ref(x[:, :n + k - 1], ts, 1, 0, n,
                                          "f32", cplx)) < TOL["f32"]
+
+
+@pytest.mark.parametrize("sig", ["ccf", "ccc"])
+@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+@pytest.mark.parametrize("k,d,c,g,n", [(155, 1, 5, 3, 3000),
+                                       (16385, 16, 3, 2, 40)])
+def test_complex_wrappers_planes_tapsets(dev, sig, precision, k, d, c, g, n):
+    """fir_decim_c / fir_decim_cc on the "planes" route (decimation 1, and
+    a window no decimating plan fits) with (G, K) taps where G does not
+    divide the channels: channel c on set c % G for both planes, one
+    launch of the real kernel a tap plane, numpy taps alike."""
+    cplx = cf.CCF if sig == "ccf" else cf.CCC
+    assert cf._route(precision, d, k, c, n, cplx=cplx) == "planes"
+    x = crandn(dev, c, n * d + k - 1, seed=k + c)
+    ts = complex_taps(dev, cplx, g, k, seed=k + g)
+    fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+    before = dict(cf.launches)
+    got = fn(x, ts, d, precision=precision)
+    torch.cuda.synchronize()
+    assert sum(cf.launches[nm] - before[nm] for nm in cf.launches) == (
+        1 if cplx == cf.CCF else 2)
+    assert got.dtype == torch.complex64 and got.shape == (c, n)
+    ref = cf.fir_decim_cplx_ref(x, ts, d, 0, n, precision, cplx)
+    assert rel(got, ref) < TOL[precision]
+    assert rel(got, plane_path(x, ts, d, 0, n, precision, cplx)) < \
+        TOL[precision]
+    assert torch.equal(fn(x, ts.cpu().numpy(), d, precision=precision), got)
 
 
 def test_complex_modes_refuse_a_bf16_stream(dev):
