@@ -9,7 +9,7 @@ Phases (each raises on failure; nothing is caught):
   1. Require a CUDA device, print its name and power limit, pin float32
      matmuls and convolutions to full precision (no TF32).
   2. Build the Hopper kernels from grtpu_torch/csrc (the FIR kernels and the
-     two recursion kernels: one nvcc per source, four started together,
+     two recursion kernels: one nvcc per source, five started together,
      sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
@@ -30,12 +30,13 @@ Phases (each raises on failure; nothing is caught):
      turned by a quarter of the band; 4 x 16k K200 d4; 4 x 8k K96 d2) must
      make exactly one launch a call, the kernels' complex mode reading the
      interleaved stream; their twin is cuda_fir.fir_decim_cplx_ref.  The
-     same bank at decimation 1 takes the "planes" route (the real kernel
-     over the stacked re / im planes, one launch a tap plane) with three
-     tap sets, channel c on set c % 3 for both planes, held against the
-     same twin; it prints its route, its launches a call, and its time
-     beside the one-set call's, in turns, with the card's name and power
-     limit.
+     same bank at decimation 1 (f32, bf16x3 and bf16, three tap sets,
+     channel c on set c % 3 for both planes, and one set) must make one
+     launch a call too, of the kernel cuda_fir._route names in its complex
+     mode (fir_decim_mma_fwd in the bf16 modes, fir_decim_fwd in f32), held
+     against the same twin; each prints its kernel, launches a call, error,
+     bound, share and conv1d, and its time in turns with the stacked-planes
+     path it replaces (forced), with the card's name and power limit.
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
@@ -80,7 +81,10 @@ Phases (each raises on failure; nothing is caught):
         "ccc", impl="kernel"), chunk 524,288, eager and device_loop, two
         runs each: one fir_decim_* launch a chunk and nothing else (counts
         zeroed before each run, read after), device_loop torch.equal to
-        eager, within 1e-4 of impl="mxu".  Prints Msamples/s of input.
+        eager, within 1e-4 of impl="mxu".  Prints Msamples/s of input.  The
+        same filter at decimation 1 (a complex matched filter at full
+        rate), FirFilter(1, the same taps, "ccc", impl="kernel"), with the
+        same gates.
      b. NbfmTx(16e3, 64e3) -> NbfmRx(16e3, 64e3) on 2^20 audio samples of a
         1 kHz tone (tests/test_fm_models.py:89-116's gates); WfmRcvPll on a
         stereo composite (19 kHz pilot, 700 Hz left, 2200 Hz right), 2^21
@@ -518,70 +522,69 @@ def two_modes(torch, label, build, inputs, items, unit="Msamples/s",
     return outs["eager"], rate, exs["device_loop"], launches
 
 
-def planes_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi):
-    """Phase 3's "planes" cases: fir_decim_c and fir_decim_cc at decimation
-    1 on the WBFM bank's complex stream ``xc`` (64 x 2^18 outputs, ``k``
-    taps), where no complex-mode launch exists and the real kernel runs
-    over the stacked re / im planes.  Three tap sets: 64 % 3 = 1, so the im
-    plane of channel c is row 64 + c, whose own set (c + 1) % 3 is not
-    c % 3, and the sets are laid out one a plane row before the call.  The
-    same call with one set (no layout) is timed beside it, in turns.  ccc:
-    each set turned by a quarter of the band.  The library call is conv1d
-    grouped by channel (G = 3) or over the batch (G = 1)."""
+def decim1_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi):
+    """Phase 3's decimation-1 cases: fir_decim_c and fir_decim_cc on the
+    WBFM bank's complex stream ``xc`` (64 x 2^18 outputs, ``k`` taps), one
+    launch a call of the kernel cuda_fir._route names in its complex mode,
+    held against fir_decim_cplx_ref.  Three tap sets: 64 % 3 = 1, so
+    channel c's set c % 3 is not the set of its im plane's row in the
+    stacked planes, which the planes path lays out first.  The one-set call
+    is the same case at G = 1.  Each call is timed in turns with the
+    stacked-planes path it replaces (forced), and in the bf16 modes with
+    the FMA route (forced).  ccc: each set turned by a quarter of the band.
+    The library call is conv1d grouped by channel (G = 3) or over the batch
+    (G = 1)."""
     sets = np.stack([firdes.low_pass(1.0, QUAD_RATE, f, 4e3)
                      for f in (15e3, 12e3, 9e3)]).astype(np.float32)
     if sets.shape != (3, k):
-        fail(f"the planes case's tap sets are {sets.shape}, not (3, {k})")
+        fail(f"the decimation-1 case's tap sets are {sets.shape}, not "
+             f"(3, {k})")
+    c = xc.shape[0]
     n = xc.shape[1] - (k - 1)
-    rows = torch.arange(xc.shape[0], device=xc.device)
-    planes = torch.cat([xc.real, xc.imag])
+    rows = torch.arange(c, device=xc.device)
 
     def grouped_conv1d(tapsets):
         w = tapsets.to(xc.dtype)[rows % tapsets.shape[0]].flip(-1)[:, None]
         xin = xc[None]
-        return lambda: torch.nn.functional.conv1d(xin, w,
-                                                  groups=xc.shape[0])
+        return lambda: torch.nn.functional.conv1d(xin, w, groups=c)
 
     real3 = torch.from_numpy(sets).to(xc.device)
     turned3 = torch.from_numpy(np.stack(
         [fir.rotate_taps(t, CHANNEL_TURN, 1.0) for t in sets])).to(xc.device)
+    kernels = {"decim_mma": "fir_decim_mma_fwd", "decim_fma": "fir_decim_fwd",
+               "tile": "fir_tile_fwd"}
     for sig, cplx, per, taps3 in (("c", cf.CCF, 2, real3),
                                   ("cc", cf.CCC, 4, turned3)):
         fn = getattr(cf, f"fir_decim_{sig}")
-        for prec in ("f32", "bf16x3"):
-            route = cf._route(prec, 1, k, xc.shape[0], n, cplx=cplx)
-            if route != "planes":
+        for prec in ("f32", "bf16x3", "bf16"):
+            route = cf._route(prec, 1, k, c, n, cplx=cplx)
+            if route not in kernels:
                 fail(f"fir_decim_{sig} at decimation 1 takes {route}")
-            kernel = {"tile": "fir_tile_fwd", "toeplitz": "fir_toeplitz_fwd"}[
-                cf._route(prec, 1, k, 2 * xc.shape[0], n)]
-            ms = {}
+            ms, planes = {}, {}
             for g, taps in ((3, taps3), (1, taps3[0])):
-                case(f"fir_decim_{sig} 64x2^18 K{k} d1 G{g}", kernel, prec,
-                     lambda: fn(xc, taps, 1, precision=prec),
+                case(f"fir_decim_{sig} 64x2^18 K{k} d1 G{g}", kernels[route],
+                     prec, lambda: fn(xc, taps, 1, precision=prec),
                      lambda: cf.fir_decim_cplx_ref(xc, taps, 1, 0, n, prec,
                                                    cplx),
-                     flop=2 * k * per * xc.shape[0] * n,
+                     flop=2 * k * per * c * n,
                      nbytes=8 * xc.numel() + 4 * (per // 2) * k * g
-                     + 8 * xc.shape[0] * n,
-                     reps=3, library=grouped_conv1d(taps) if g > 1
+                     + 8 * c * n,
+                     reps=5, library=grouped_conv1d(taps) if g > 1
                      else conv1d(xc, taps, 1),
-                     lib_reps=3, launches_a_call=per // 2, route=route)
-            ms[3], ms[1] = in_turns(
-                lambda: fn(xc, taps3, 1, precision=prec),
-                lambda: fn(xc, taps3[0], 1, precision=prec), 5, 5, rounds=3)
-            # the real kernel's launches alone, on planes stacked beforehand:
-            # the rest of a call is the stacking and the complex64 output
-            tplanes = [cf._tapsets(t, xc.device) for t in (
-                (taps3[0],) if cplx == cf.CCF
-                else (taps3[0].real, taps3[0].imag))]
-            alone = launch_ms(lambda: [cf.fir_decim(planes, t, 1,
-                                                    precision=prec)
-                                       for t in tplanes], reps=5, rounds=3)
-            print(f"planes fir_decim_{sig} 64x2^18 K{k} d1 {prec}: G=3 "
-                  f"{ms[3]:.4f} ms, G=1 {ms[1]:.4f} ms a call (in turns, "
-                  f"median of 3 rounds); {kernel} {per // 2} a call, "
-                  f"{alone:.4f} ms alone on the stacked planes; {smi}",
-                  flush=True)
+                     lib_reps=3, launches_a_call=1, route=route,
+                     fma=None if prec == "f32" else
+                     (lambda: cf._launch_tile(xc, taps, 1, 0, n, prec,
+                                              _fma=True, cplx=cplx)))
+                ms[g], planes[g] = in_turns(
+                    lambda: fn(xc, taps, 1, precision=prec),
+                    lambda: cf._decim_complex(xc, taps, 1, prec, cplx,
+                                              _force_planes=True),
+                    5, 5, rounds=3)
+            print(f"decim1 fir_decim_{sig} 64x2^18 K{k} {prec}: "
+                  f"{kernels[route]} 1 launch a call; G=3 {ms[3]:.4f} ms "
+                  f"(planes {planes[3]:.4f}), G=1 {ms[1]:.4f} ms (planes "
+                  f"{planes[1]:.4f}) a call, each in turns with the planes "
+                  f"path, median of 3 rounds; {smi}", flush=True)
 
 
 def check_kernels(torch, cf, fir, firdes, _build):
@@ -759,7 +762,7 @@ def check_kernels(torch, cf, fir, firdes, _build):
                  fma=None if prec == "f32" else
                  (lambda: cf._launch_tile(xc, taps_c, AUDIO_DECIM, 0, nout,
                                           prec, _fma=True, cplx=cplx)))
-    planes_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi)
+    decim1_route(torch, cf, fir, firdes, case, conv1d, xc, k, smi)
     del xc
 
     # short filters at decimation 8 and 2: the two decimating routes side by
@@ -1437,16 +1440,18 @@ def run_tuner_wbfm(torch, cf):
                           "snr": audio_snr}
 
 
-def run_channel_select(torch, cf, capture):
+def run_channel_select(torch, cf, capture, decim=TUNER_DECIM):
     """Phase 6c: config #1's capture through the channel-select filter of a
-    narrowband receiver, FirFilter(8, the tuner's 99-tap low-pass turned to
-    the station at TUNE_HZ, "ccc", impl="kernel") (what the GRC registry's
-    gr_fir_filter_ccc builds), at chunk 524,288 in both run modes, two runs
-    each (an executor carries its history from one run into the next, so
-    runs are compared by their index).  Gates: one fir_decim_* launch a
-    chunk and nothing else (counts zeroed just before each run and read just
-    after it), each device_loop run torch.equal to the eager run of its
-    index, the first run within bf16x3's tolerance of impl="mxu"'s."""
+    narrowband receiver, FirFilter(decim, the tuner's 99-tap low-pass
+    turned to the station at TUNE_HZ, "ccc", impl="kernel") (what the GRC
+    registry's gr_fir_filter_ccc builds), decimating by 8 and at decimation
+    1 (a complex matched filter at full rate), at chunk 524,288 in both run
+    modes, two runs each (an executor carries its history from one run into
+    the next, so runs are compared by their index).  Gates: one launch a
+    chunk of a FIR kernel and nothing else (counts zeroed just before each
+    run and read just after it), each device_loop run torch.equal to the
+    eager run of its index, the first run within bf16x3's tolerance of
+    impl="mxu"'s."""
     from grtpu_torch import StreamExecutor
     from grtpu_torch.blocks.filter import FirFilter
     from grtpu_torch.ops.fir import rotate_taps
@@ -1458,8 +1463,8 @@ def run_channel_select(torch, cf, capture):
     nchunks = CAPTURE_SAMPLES // CAPTURE_CHUNK
 
     def executor(impl):
-        g = chain_graph(torch, [FirFilter(TUNER_DECIM, taps, "ccc",
-                                          impl=impl)], torch.complex64)
+        g = chain_graph(torch, [FirFilter(decim, taps, "ccc", impl=impl)],
+                        torch.complex64)
         return StreamExecutor(g, chunk_size=CAPTURE_CHUNK, device="cuda")
 
     mxu = executor("mxu").run(x_dev)
@@ -1478,17 +1483,19 @@ def run_channel_select(torch, cf, capture):
             counts = {n: v for n, v in cf.launches.items() if v}
             runs.append((mode, counts))
             kernel = sum(counts.get(n, 0) for n in ("fir_decim_fwd",
-                                                     "fir_decim_mma_fwd"))
+                                                     "fir_decim_mma_fwd",
+                                                     "fir_tile_fwd"))
             if kernel != nchunks or sum(counts.values()) != nchunks:
-                fail(f"channel select ccc ({mode}) launched {counts}; "
-                     f"expected one fir_decim_* launch a chunk ({nchunks})")
+                fail(f"channel select ccc d{decim} ({mode}) launched "
+                     f"{counts}; expected one FIR launch a chunk "
+                     f"({nchunks})")
             outs[mode].append(y)
         rates[mode] = CAPTURE_SAMPLES / secs / 1e6
     same = all(torch.equal(a, b)
                for a, b in zip(outs["eager"], outs["device_loop"]))
     y = outs["eager"][0]
     _, err = errors(y, mxu)
-    print(f"channel select ccc FirFilter(8, {len(taps)} taps turned to "
+    print(f"channel select ccc FirFilter({decim}, {len(taps)} taps turned to "
           f"{TUNE_HZ / 1e3:g} kHz, impl=kernel), {CAPTURE_SAMPLES} input "
           f"samples, chunk {CAPTURE_CHUNK}: eager {rates['eager']:.2f}, "
           f"device_loop {rates['device_loop']:.2f} Msamples/s of input "
@@ -1498,12 +1505,15 @@ def run_channel_select(torch, cf, capture):
           f"max_rel_err={err:.3e} "
           f"(tol {TOL['bf16x3']:g})", flush=True)
     if not same:
-        fail("channel select ccc: the device_loop output differs from eager")
-    if (y.shape != (CAPTURE_SAMPLES // TUNER_DECIM,)
+        fail(f"channel select ccc d{decim}: the device_loop output differs "
+             f"from eager")
+    if (y.shape != (CAPTURE_SAMPLES // decim,)
             or not torch.isfinite(torch.view_as_real(y)).all()):
-        fail(f"channel select ccc: output {tuple(y.shape)} or non-finite")
+        fail(f"channel select ccc d{decim}: output {tuple(y.shape)} or "
+             f"non-finite")
     if not err <= TOL["bf16x3"]:
-        fail("channel select ccc: the kernel path disagrees with mxu")
+        fail(f"channel select ccc d{decim}: the kernel path disagrees with "
+             f"mxu")
 
 
 def run_fm_family(torch):
@@ -4919,6 +4929,7 @@ def main() -> int:
     # launch counts, zeroed before and read after
     _, _, config1 = run_tuner_wbfm(torch, cf)
     run_channel_select(torch, cf, config1["capture"])
+    run_channel_select(torch, cf, config1["capture"], decim=1)
     run_fm_family(torch)
 
     # phase 7: config #2, the polyphase filterbank (no hand kernel)
@@ -5018,8 +5029,9 @@ def main() -> int:
                    and r["precision"] == prec and r["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "grtpu_torch/csrc/fir_decim.cu"
-            if name.startswith("fir_decim") else "grtpu_torch/csrc/fir_tile.cu",
+            "source": {"fir_decim_fwd": "grtpu_torch/csrc/fir_decim.cu",
+                       "fir_decim_mma_fwd": "grtpu_torch/csrc/fir_decim_mma.cu"}
+            .get(name, "grtpu_torch/csrc/fir_tile.cu"),
             "replaces": "grtpu/ops/pallas_fir.py:70",
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],

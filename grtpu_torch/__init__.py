@@ -13,8 +13,9 @@ What changes in the port:
 * The Pallas TPU kernel ``grtpu.ops.pallas_fir._cascade_kernel`` becomes
   hand-written CUDA C++ kernels for Hopper (``grtpu_torch/csrc/fir_tile.cu``:
   ``fir_tile_fwd``, ``fir_cascade_fwd``, ``fir_toeplitz_fwd``,
-  ``fir_cascade_mma_fwd``; ``csrc/fir_decim.cu``: ``fir_decim_fwd``,
-  ``fir_decim_mma_fwd``), built with ``nvcc`` at first use and reached
+  ``fir_cascade_mma_fwd``; ``csrc/fir_decim.cu``: ``fir_decim_fwd``;
+  ``csrc/fir_decim_mma.cu``: ``fir_decim_mma_fwd``), built with ``nvcc``
+  at first use and reached
   through :mod:`grtpu_torch.ops.cuda_fir`.  Two long ``lax.scan``
   recursions of the trellis slice run as hand kernels too
   (``csrc/trellis_viterbi.cu``, ``csrc/atsc_dfe.cu`` behind

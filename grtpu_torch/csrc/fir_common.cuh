@@ -1,6 +1,7 @@
 // What the Hopper FIR kernels of grtpu_torch share (fir_tile.cu,
-// fir_decim.cu): the precision modes, the FMA route's inner loop, cp.async,
-// the bf16 split and the shared-memory opt-in.
+// fir_decim.cuh): the precision modes, the FMA route's inner loop, the
+// complex modes' planes, cp.async, the bf16 split and the shared-memory
+// opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -131,6 +132,75 @@ __device__ __forceinline__ void slide8(float (&acc)[R8],
     }
   }
 }
+
+// ------------------------------------------------------ the complex modes
+// The complex modes: stream planes (re, im), tap planes (tr, ti) and real
+// sums a mode keeps apart.  Sum s = a * NT + b is stream plane a against tap
+// plane b.
+enum Cplx { REAL = 0, CCF = 1, CCC = 2 };
+template <int C> struct Cx {
+  static constexpr int NC = C == REAL ? 1 : 2;
+  static constexpr int NT = C == CCC ? 2 : 1;
+  static constexpr int NS = NC * NT;
+};
+__host__ __device__ __forceinline__ int cx_nc(int c) { return c ? 2 : 1; }
+__host__ __device__ __forceinline__ int cx_nt(int c) {
+  return c == CCC ? 2 : 1;
+}
+
+// A complex output from its sums v[s]: ccf (re.t, im.t); ccc
+// (re.tr - im.ti, re.ti + im.tr).
+template <int C>
+__device__ __forceinline__ float2 cx_out(const float (&v)[Cx<C>::NS]) {
+  if constexpr (C == CCC)
+    return make_float2(v[0] - v[3], v[1] + v[2]);
+  else
+    return make_float2(v[0], v[1]);
+}
+
+// Output i of one row from its sums v[s].
+template <int C>
+__device__ __forceinline__ void store_out(float* y, int64_t i,
+                                          const float (&v)[Cx<C>::NS]) {
+  if constexpr (C == REAL)
+    y[i] = v[0];
+  else
+    reinterpret_cast<float2*>(y)[i] = cx_out<C>(v);
+}
+
+// Tap m of tap set g as its NT planes (taps: (G, K) float32, or complex64
+// as float pairs).
+template <int C>
+__device__ __forceinline__ void tap_planes(const float* taps, int g, int K,
+                                           int m, float (&t)[2]) {
+  constexpr int NT = Cx<C>::NT;
+  const bool in = m >= 0 && m < K;
+  const int64_t at = ((int64_t)g * K + (in ? K - 1 - m : 0)) * NT;
+#pragma unroll
+  for (int b = 0; b < NT; ++b) t[b] = in ? taps[at + b] : 0.f;
+}
+
+// Sample w of a stream as its planes' values (a complex sample: re, im).
+__device__ __forceinline__ void sample(const float* src, int64_t w,
+                                       float (&v)[2]) {
+  v[0] = src[w];
+}
+__device__ __forceinline__ void sample(const __nv_bfloat16* src, int64_t w,
+                                       float (&v)[2]) {
+  v[0] = __bfloat162float(src[w]);
+}
+__device__ __forceinline__ void sample(const float2* src, int64_t w,
+                                       float (&v)[2]) {
+  const float2 p = src[w];
+  v[0] = p.x;
+  v[1] = p.y;
+}
+
+// The element type of the stream in mode C: XT for the real mode, float2
+// (a complex64 sample) for ccf and ccc.
+template <typename XT, int C> struct Elem { using T = XT; };
+template <typename XT> struct Elem<XT, CCF> { using T = float2; };
+template <typename XT> struct Elem<XT, CCC> { using T = float2; };
 
 // ------------------------------------------------------------- cp.async
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -1,5 +1,6 @@
 // Hopper FIR kernels for grtpu_torch (built for sm_90a by ops/_build.py,
-// beside fir_decim.cu, which holds the decimating routes).
+// beside fir_decim.cu and fir_decim_mma.cu, which hold the decimating
+// routes).
 //
 // Replaces the TPU kernel grtpu/ops/pallas_fir.py::_cascade_kernel
 // (pallas_fir.py:70-191) and its two pallas_call sites:
@@ -10,8 +11,13 @@
 //                        and for fir_cascade (:194-262) with one stage, at
 //                        decimation 1 in f32 and for filters outside the
 //                        tensor-core route's range; decimating calls take
-//                        fir_decim.cu's kernels unless their window is too
-//                        large for those.
+//                        fir_decim.cuh's kernels unless their window is too
+//                        large for those.  Its complex modes (ccf, ccc: the
+//                        interleaved complex64 stream read once, the
+//                        complex64 output written once) serve fir_decim_c /
+//                        fir_decim_cc at decimation 1 in f32 from 1,024
+//                        taps (cuda_fir._D1_TILE_TAPS) and complex windows
+//                        too large for the decimating kernels.
 //   * fir_toeplitz_fwd — the same single-stage paths in bf16 and bf16x3 at
 //                        decimation 1, on the tensor cores.
 //   * fir_cascade_fwd  — the multi-stage cascade (:155-191), S chained FIRs
@@ -21,11 +27,12 @@
 //                        the tensor cores.
 //
 // What bounds it: a K-tap FIR does 2K FLOP per output against 4*decim bytes
-// of input, K/(2*decim) FLOP per byte.  At decimation 1 that is 128 for a
-// 256-tap cascade stage and 2048 for the composed 4097-tap filter, far above
-// the H100's ridges (~20 FLOP/byte for float32 on the CUDA cores, 67 TFLOP/s
-// over 3.35 TB/s; ~295 for bf16 on the tensor cores, 989 TFLOP/s): those
-// paths are bound by operations.
+// of input, K/(2*decim) FLOP per byte (a complex stream: twice the FLOP on
+// twice the bytes in ccf, four times the FLOP in ccc).  At decimation 1
+// that is 128 for a 256-tap cascade stage and 2048 for the composed
+// 4097-tap filter, far above the H100's ridges (~20 FLOP/byte for float32
+// on the CUDA cores, 67 TFLOP/s over 3.35 TB/s; ~295 for bf16 on the tensor
+// cores, 989 TFLOP/s): those paths are bound by operations.
 //
 // The FMA route (f32 everywhere, filters outside the tensor cores' range):
 // each block stages the taps (blocks of 2048 for the single stage, 8 KB of
@@ -78,8 +85,9 @@
 
 namespace {
 
-// Shared-memory layout of fir_tile_kernel, in floats per plane: taps (decim
-// rows of q8) then the window (decim skewed rows of tile + q8 + 8 columns).
+// Shared-memory layout of fir_tile_kernel, in floats per precision plane:
+// the taps (decim rows of q8 a tap plane) then the window (decim skewed rows
+// of tile + q8 + 8 columns a stream plane).
 __host__ __device__ __forceinline__ int tile_q8(int decim, int kblk) {
   return round8((kblk + decim - 1) / decim);
 }
@@ -92,13 +100,17 @@ __host__ __device__ __forceinline__ int tile_row(int tile, int q8) {
 // in blocks of kblk.  For a tap block, window offset m (tap k = k0 + kb-1 - m)
 // of output i sits at sample s0 + (i - i0)*decim + m; with m = q*decim + p it
 // is row p, column (i - i0) + q of the phase-major window, and tap row p,
-// column q.
-template <int P, typename XT>
+// column q.  In the complex modes (C, as fir_common.cuh has them) the stream
+// is read as float2 and split into a re and an im window as it is staged,
+// ccc's complex64 taps into a tr and a ti row; slide8 runs once for each
+// (stream plane, tap plane) pair and ccc's four sums meet in registers.
+template <int P, typename XT, int C>
 __global__ void fir_tile_kernel(const XT* __restrict__ x,
                                 const float* __restrict__ taps,
                                 float* __restrict__ y, int total, int G, int K,
                                 int decim, int lead, int nout, int kblk) {
   constexpr int NPL = Mode<P>::NPL;
+  constexpr int NC = Cx<C>::NC, NT = Cx<C>::NT, NS = Cx<C>::NS;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int nt = blockDim.x;
@@ -109,19 +121,17 @@ __global__ void fir_tile_kernel(const XT* __restrict__ x,
   const int q8 = tile_q8(decim, kblk);
   const int E = tile + q8 + 8;
   const int ER = tile_row(tile, q8);
-  float* tap[NPL];
-  float* win[NPL];
-#pragma unroll
-  for (int l = 0; l < NPL; ++l) {
-    tap[l] = smem + l * decim * q8;
-    win[l] = smem + NPL * decim * q8 + l * decim * ER;
-  }
+  // tap plane b, precision plane l at tapb + (b*NPL + l)*decim*q8; stream
+  // plane a, precision plane l at winb + (a*NPL + l)*decim*ER
+  float* tapb = smem;
+  float* winb = smem + NT * NPL * decim * q8;
   const XT* xr = x + (int64_t)row * total;
-  const float* tr = taps + (int64_t)(row % G) * K;
 
-  float acc[R8];
+  float acc[NS][R8];
 #pragma unroll
-  for (int r = 0; r < R8; ++r) acc[r] = 0.f;
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int r = 0; r < R8; ++r) acc[s][r] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kblk) {
     const int kb = min(kblk, K - k0);
@@ -131,54 +141,93 @@ __global__ void fir_tile_kernel(const XT* __restrict__ x,
     for (int idx = tid; idx < decim * q8; idx += nt) {
       const int p = idx / q8, q = idx - p * q8;
       const int m = q * decim + p;
-      float v[2];
-      Mode<P>::split(m < kb ? tr[k0 + kb - 1 - m] : 0.f, v);
+      // window offset m takes tap k0 + kb-1 - m, which tap_planes counts
+      // from the end of the taps
+      float t[2];
+      tap_planes<C>(taps, row % G, K, m < kb ? K - k0 - kb + m : K, t);
 #pragma unroll
-      for (int l = 0; l < NPL; ++l) tap[l][idx] = v[l];
+      for (int b = 0; b < NT; ++b) {
+        float v[2];
+        Mode<P>::split(t[b], v);
+#pragma unroll
+        for (int l = 0; l < NPL; ++l)
+          tapb[(b * NPL + l) * decim * q8 + idx] = v[l];
+      }
     }
     // LOADS samples in flight per thread
     const int wtot = decim * E;
     for (int w0 = tid; w0 < wtot; w0 += LOADS * nt) {
-      float xv[LOADS];
+      float xv[LOADS][2];
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int w = w0 + u * nt;
         const int64_t s = s0 + w;
-        xv[u] = (w < wl && s >= 0 && s < total) ? load(xr, s) : 0.f;
+        xv[u][0] = xv[u][1] = 0.f;
+        if (w < wl && s >= 0 && s < total) sample(xr, s, xv[u]);
       }
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int w = w0 + u * nt;
         if (w >= wtot) break;
-        float v[2];
-        Mode<P>::split(xv[u], v);
         const int at = (w % decim) * ER + skew(w / decim);
 #pragma unroll
-        for (int l = 0; l < NPL; ++l) win[l][at] = v[l];
+        for (int a = 0; a < NC; ++a) {
+          float v[2];
+          Mode<P>::split(xv[u][a], v);
+#pragma unroll
+          for (int l = 0; l < NPL; ++l)
+            winb[(a * NPL + l) * decim * ER + at] = v[l];
+        }
       }
     }
     __syncthreads();
     for (int p = 0; p < decim; ++p) {
-      const float* tp[NPL];
-      const float* wp[NPL];
 #pragma unroll
-      for (int l = 0; l < NPL; ++l) {
-        tp[l] = tap[l] + p * q8;
-        wp[l] = win[l] + p * ER;
-      }
-      slide8<P>(acc, tp, wp, tid * R8, q8);
+      for (int a = 0; a < NC; ++a)
+#pragma unroll
+        for (int b = 0; b < NT; ++b) {
+          const float* tp[NPL];
+          const float* wp[NPL];
+#pragma unroll
+          for (int l = 0; l < NPL; ++l) {
+            tp[l] = tapb + (b * NPL + l) * decim * q8 + p * q8;
+            wp[l] = winb + (a * NPL + l) * decim * ER + p * ER;
+          }
+          slide8<P>(acc[a * NT + b], tp, wp, tid * R8, q8);
+        }
     }
   }
 
-  float* yr = y + (int64_t)row * nout;
   const int i = i0 + tid * R8;
-  if (i + R8 <= nout && (reinterpret_cast<uintptr_t>(yr + i) & 15) == 0) {
-    st4(yr + i, acc[0], acc[1], acc[2], acc[3]);
-    st4(yr + i + 4, acc[4], acc[5], acc[6], acc[7]);
-  } else {
+  if constexpr (C == REAL) {
+    float* yr = y + (int64_t)row * nout;
+    if (i + R8 <= nout && (reinterpret_cast<uintptr_t>(yr + i) & 15) == 0) {
+      st4(yr + i, acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      st4(yr + i + 4, acc[0][4], acc[0][5], acc[0][6], acc[0][7]);
+    } else {
 #pragma unroll
-    for (int r = 0; r < R8; ++r)
-      if (i + r < nout) yr[i + r] = acc[r];
+      for (int r = 0; r < R8; ++r)
+        if (i + r < nout) yr[i + r] = acc[0][r];
+    }
+  } else {
+    float2 o[R8];
+#pragma unroll
+    for (int r = 0; r < R8; ++r) {
+      float v[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) v[s] = acc[s][r];
+      o[r] = cx_out<C>(v);
+    }
+    float* yr = y + 2 * ((int64_t)row * nout + i);
+    if (i + R8 <= nout && (reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
+#pragma unroll
+      for (int r = 0; r < R8; r += 2)
+        st4(yr + 2 * r, o[r].x, o[r].y, o[r + 1].x, o[r + 1].y);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R8; ++r)
+        if (i + r < nout) reinterpret_cast<float2*>(yr)[r] = o[r];
+    }
   }
 }
 
@@ -690,10 +739,12 @@ fir_cascade_mma_kernel(const float* __restrict__ x,
   }
 }
 
-size_t tile_smem(int precision, int threads, int decim, int kblk) {
+size_t tile_smem(int precision, int threads, int decim, int kblk, int cplx) {
   const size_t npl = precision == BF16X3 ? 2 : 1;
   const int q8 = tile_q8(decim, kblk);
-  return sizeof(float) * npl * decim * ((size_t)q8 + tile_row(threads * R8, q8));
+  return sizeof(float) * npl * decim *
+         ((size_t)cx_nt(cplx) * q8 +
+          (size_t)cx_nc(cplx) * tile_row(threads * R8, q8));
 }
 
 size_t cascade_smem(int precision, int K, int S, int tile) {
@@ -702,19 +753,40 @@ size_t cascade_smem(int precision, int K, int S, int tile) {
          ((size_t)round8(K) + 2 * (size_t)cascade_cap(K, S, tile));
 }
 
-template <int P, typename XT>
+template <int P, typename XT, int C>
 cudaError_t launch_tile(const void* x, const float* taps, float* y, int B,
                         int total, int G, int K, int decim, int lead, int nout,
                         int threads, int kblk, cudaStream_t stream) {
-  const size_t smem = tile_smem(P, threads, decim, kblk);
-  auto kern = fir_tile_kernel<P, XT>;
+  using T = typename Elem<XT, C>::T;
+  const size_t smem = tile_smem(P, threads, decim, kblk, C);
+  auto kern = fir_tile_kernel<P, T, C>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const int tile = threads * R8;
   dim3 grid((nout + tile - 1) / tile, B);
-  kern<<<grid, threads, smem, stream>>>(static_cast<const XT*>(x), taps, y,
+  kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), taps, y,
                                         total, G, K, decim, lead, nout, kblk);
   return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_tile_c(const void* x, const float* taps, float* y, int B,
+                          int total, int G, int K, int decim, int lead,
+                          int nout, int threads, int kblk, int cplx,
+                          cudaStream_t s) {
+  switch (cplx) {
+    case REAL:
+      return launch_tile<P, float, REAL>(x, taps, y, B, total, G, K, decim,
+                                         lead, nout, threads, kblk, s);
+    case CCF:
+      return launch_tile<P, float, CCF>(x, taps, y, B, total, G, K, decim,
+                                        lead, nout, threads, kblk, s);
+    case CCC:
+      return launch_tile<P, float, CCC>(x, taps, y, B, total, G, K, decim,
+                                        lead, nout, threads, kblk, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int P>
@@ -784,36 +856,42 @@ extern "C" {
 
 // Shared-memory bytes one block of each kernel uses (the wrapper sizes its
 // launches with these).
-size_t fir_tile_smem(int precision, int threads, int decim, int kblk) {
-  return tile_smem(precision, threads, decim, kblk);
+size_t fir_tile_smem(int precision, int threads, int decim, int kblk,
+                     int cplx) {
+  return tile_smem(precision, threads, decim, kblk, cplx);
 }
 
 size_t fir_cascade_smem(int precision, int K, int S, int tile) {
   return cascade_smem(precision, K, S, tile);
 }
 
-// x: (B, total) float32 (x_bf16 == 0) or bfloat16 (x_bf16 == 1), row-major
-// contiguous; taps: (G, K) float32; y: (B, nout) float32.
+// Real mode (cplx 0): x (B, total) float32 (x_bf16 == 0) or bfloat16
+// (x_bf16 == 1, precision bf16 only), row-major contiguous; taps (G, K)
+// float32; y (B, nout) float32.  ccf (cplx 1): x and y complex64, taps
+// float32; ccc (cplx 2): x, taps and y complex64; the complex modes take no
+// bf16 stream.
 int fir_tile_fwd(const void* x, int x_bf16, const void* taps, void* y, int B,
                  int total, int G, int K, int decim, int lead, int nout,
-                 int precision, int threads, int kblk, void* stream) {
+                 int precision, int threads, int kblk, int cplx,
+                 void* stream) {
   const float* t = static_cast<const float*>(taps);
   float* out = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  if (cplx < 0 || cplx > CCC || (x_bf16 && cplx)) return (int)err;
   if (x_bf16) {
     if (precision == BF16)
-      err = launch_tile<BF16, __nv_bfloat16>(x, t, out, B, total, G, K, decim,
-                                             lead, nout, threads, kblk, s);
+      err = launch_tile<BF16, __nv_bfloat16, REAL>(
+          x, t, out, B, total, G, K, decim, lead, nout, threads, kblk, s);
   } else if (precision == F32) {
-    err = launch_tile<F32, float>(x, t, out, B, total, G, K, decim, lead, nout,
-                                  threads, kblk, s);
+    err = launch_tile_c<F32>(x, t, out, B, total, G, K, decim, lead, nout,
+                             threads, kblk, cplx, s);
   } else if (precision == BF16) {
-    err = launch_tile<BF16, float>(x, t, out, B, total, G, K, decim, lead,
-                                   nout, threads, kblk, s);
+    err = launch_tile_c<BF16>(x, t, out, B, total, G, K, decim, lead, nout,
+                              threads, kblk, cplx, s);
   } else if (precision == BF16X3) {
-    err = launch_tile<BF16X3, float>(x, t, out, B, total, G, K, decim, lead,
-                                     nout, threads, kblk, s);
+    err = launch_tile_c<BF16X3>(x, t, out, B, total, G, K, decim, lead, nout,
+                                threads, kblk, cplx, s);
   }
   return (int)err;
 }

@@ -1,13 +1,16 @@
 """Build and load the Hopper kernels in ``grtpu_torch/csrc`` at first use.
 
-``nvcc`` compiles each source (``fir_tile.cu`` and ``fir_decim.cu``, which
-include ``fir_common.cuh``; ``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the
-two recursion kernels) for ``sm_90a`` into a shared library of its own
-with a plain C interface, all compilers started together, and the libraries
-are loaded with ``ctypes``.  They are cached under ``build/grtpu_torch/`` at
-the repository root (listed in ``.gitignore``), keyed on a hash of the
-source, the header and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs when the module is imported:
+``nvcc`` compiles each source (``fir_tile.cu``, which includes
+``fir_common.cuh``; ``fir_decim.cu`` and ``fir_decim_mma.cu``, the
+decimating FIR's two routes, which include ``fir_decim.cuh``;
+``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the two recursion kernels) for
+``sm_90a`` into a shared library of its own with a plain C interface, all
+compilers started together, and the libraries are loaded with ``ctypes``.
+The decimating routes are two sources so that their instances, the most
+of any source, compile side by side.  The libraries are cached under
+``build/grtpu_torch/`` at the repository root (listed in ``.gitignore``),
+keyed on a hash of the source, the headers and the flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing here runs when the module is imported:
 :func:`library` builds on its first call.
 
 :func:`host_library` builds the host I/O runtime (``grtpu_torch/io/native``)
@@ -32,8 +35,9 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu",
-           CSRC / "trellis_viterbi.cu", CSRC / "atsc_dfe.cu")
-HEADERS = (CSRC / "fir_common.cuh",)
+           CSRC / "fir_decim_mma.cu", CSRC / "trellis_viterbi.cu",
+           CSRC / "atsc_dfe.cu")
+HEADERS = (CSRC / "fir_common.cuh", CSRC / "fir_decim.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -146,24 +150,27 @@ def library() -> SimpleNamespace:
     global _lib
     if _lib is not None:
         return _lib
-    tile, decim, viterbi, dfe = (ctypes.CDLL(str(path)) for path in build())
+    tile, decim, decim_mma, viterbi, dfe = (ctypes.CDLL(str(path))
+                                            for path in build())
     i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
     sigs = {
         tile: {
-            "fir_tile_fwd": ([p, i, p, p] + [i] * 10 + [p], i),
+            "fir_tile_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
             "fir_cascade_fwd": ([p, p, p] + [i] * 7 + [p], i),
             "fir_cascade_mma_fwd": ([p, p, p] + [i] * 6 + [p], i),
             "fir_toeplitz_fwd": ([p, i, p, p, p] + [i] * 10 + [p], i),
             "fir_toeplitz_smem": ([i, i], i64),
             "fir_toeplitz_rows_per_pass": ([], i),
-            "fir_tile_smem": ([i, i, i, i], i64),
+            "fir_tile_smem": ([i] * 5, i64),
             "fir_cascade_smem": ([i, i, i, i], i64),
             "fir_error_string": ([i], ctypes.c_char_p),
         },
         decim: {
             "fir_decim_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
-            "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 12 + [p], i),
             "fir_decim_smem": ([i] * 6, i64),
+        },
+        decim_mma: {
+            "fir_decim_mma_fwd": ([p, i, p, p] + [i] * 12 + [p], i),
             "fir_decim_mma_smem": ([i] * 6, i64),
         },
         viterbi: {

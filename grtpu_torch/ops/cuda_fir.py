@@ -20,13 +20,17 @@ over the CUDA C++ kernels in ``grtpu_torch/csrc``:
   cores (``mma.sync``): windows of the stream, 8 outputs apart, against the
   strided Toeplitz matrix of the taps, behind the same ring.
 
-  Both decimating kernels also take a complex64 stream in one launch
-  (``cplx`` 1, ccf: real taps; 2, ccc: complex64 taps): the stream is read
-  interleaved and the output written interleaved, the re / im split made
-  in shared memory.  That is ``fir_decim_c`` and ``fir_decim_cc`` at
-  decimation > 1; at decimation 1 (and for windows too large for the
-  decimating kernels) they run the real FIR over the stacked re / im
-  planes, :func:`_route`'s "planes".  Every route gives channel c tap set
+  Both decimating kernels and ``fir_tile_fwd`` also take a complex64
+  stream in one launch (``cplx`` 1, ccf: real taps; 2, ccc: complex64
+  taps): the stream is read interleaved and the output written
+  interleaved, the re / im split made in shared memory.  That is
+  ``fir_decim_c`` and ``fir_decim_cc`` on the card at every decimation
+  (at decimation 1 ``fir_decim_mma_fwd`` in the bf16 modes,
+  ``fir_decim_fwd`` or ``fir_tile_fwd`` in f32), and ``fir_tile_fwd`` for
+  windows too large for the decimating kernels.  Only :func:`_route`'s
+  "planes" shapes (the bf16 modes' long filters at decimation 1, which
+  run faster so, and decimations no complex plan fits) run the real FIR
+  over the stacked re / im planes.  Every route gives channel c tap set
   c % G of (G, K) taps for both its planes.
 * ``fir_cascade_fwd``  — S chained FIRs with the same taps from zero
   history, the stages resident in shared memory, float32 FMAs (f32).
@@ -131,6 +135,34 @@ _DM_MIN_TAPS_ELSE = 16
 #   decimation 3-16, bf16 and bf16x3, 16 to 256 taps: tensor 1.05-7.0x ahead
 # (H100, 700 W; twice the FLOP a byte of the real stream moves the
 # crossovers below 16 taps, where nothing was timed).
+#
+# A complex stream at decimation 1 (``python -m grtpu_torch.ops.sweep_plans
+# --decim1`` prints these; H100 at 700 W, from a CUDA graph, 64 x 2^15
+# outputs, ms) takes the tensor cores from 16 taps too (fir_decim_mma_fwd /
+# fir_decim_fwd, ccf: bf16 K16 0.0120 / 0.0153, bf16x3 0.0131 / 0.0221;
+# ccc bf16 0.0125 / 0.0203).  Its FMA route is fir_decim_fwd (one phase
+# group) below _D1_TILE_TAPS taps and fir_tile_fwd's complex mode from them
+# (fir_decim_fwd / fir_tile_fwd, f32: ccf K155 0.0413 / 0.0420, K512
+# 0.1106 / 0.1064, K1024 0.2166 / 0.2015, K2048 0.4497 / 0.3962; ccc K155
+# 0.0708 / 0.0748, K1024 0.3788 / 0.3752, K2048 0.9320 / 0.7650, but K4097
+# 1.8479 / 2.2392; on the WBFM bank, 64 x 2^18 K155, ccf 0.2929 / 0.3114,
+# ccc 0.5327 / 0.5838).
+_D1_TILE_TAPS = 1024
+# From these taps (to _TZ_MAX_TAPS) its bf16 modes run faster as the real
+# FIR over the stacked planes on fir_toeplitz_fwd (wgmma, the Toeplitz
+# matrix in registers), where the decimating route's block, whose window
+# grows with the taps, falls to three, then one or two blocks an SM
+# (fir_decim_mma_fwd / planes: ccf bf16x3 K512 0.0649 / 0.0657, K1024
+# 0.1297 / 0.0829, K4097 0.6358 / 0.1873; ccc bf16x3 K1024 0.1584 /
+# 0.1633, K2048 0.5336 / 0.2328; bf16 alike).  Those shapes take the
+# "planes" route on the card too.
+_D1_PLANES_TAPS = {CCF: 1024, CCC: 2048}
+# Tiles a block of a decimating kernel walks at decimation 1, at most: on
+# the WBFM bank as a complex stream (ms), fir_decim_mma_fwd ccf bf16x3 at
+# four tiles a block 0.1745 at 2, 0.1737 at 4, 0.1828 at 13 (the waves
+# rule's pick), 0.1859 at 16; fir_decim_fwd ccf f32 0.2809 at 2, 0.3087 at
+# 13; ccc f32 0.5169 at 2, 0.5438 at 16.
+_D1_TILES_A_BLOCK = 2
 
 
 def _dm_min_taps(precision: str, decim: int, cplx: int = REAL) -> int:
@@ -312,12 +344,15 @@ def _toeplitz_smem(precision: str, k: int) -> int:
     return tap_bytes + 2 * npl * 2 * rows * LANE
 
 
-def _tile_smem(precision: str, threads: int, decim: int, kblk: int) -> int:
-    """fir_tile.cu's ``tile_smem``: per plane, ``decim`` rows of taps and of
-    the skewed window of threads * 8 outputs."""
+def _tile_smem(precision: str, threads: int, decim: int, kblk: int,
+               cplx: int = REAL) -> int:
+    """fir_tile.cu's ``tile_smem``: per precision plane, ``decim`` rows of
+    taps a tap plane and of the skewed window of threads * 8 outputs a
+    stream plane."""
+    nc, nt = _planes(cplx)
     q8 = _round(-(-kblk // decim), 8)
     row = _round(_skew(threads * 8 + q8 + 8), 4)
-    return 4 * _npl(precision) * decim * (q8 + row)
+    return 4 * _npl(precision) * decim * (nt * q8 + nc * row)
 
 
 def _cascade_smem(precision: str, k: int, nstages: int, tile: int) -> int:
@@ -421,6 +456,13 @@ def _blocks_per_row(b: int, tiles: int, sms: int, smem: int) -> int:
     return -best[1]
 
 
+def _d1_tiles(decim: int, tpb: int) -> int:
+    """Tiles a block of a decimating kernel walks: at decimation 1 at most
+    ``_D1_TILES_A_BLOCK``, where the waves rule of :func:`_blocks_per_row`
+    asks for more (its start-up of about a tile is less there)."""
+    return min(tpb, _D1_TILES_A_BLOCK) if decim == 1 else tpb
+
+
 @functools.lru_cache(maxsize=4096)
 def _decim_mma_plan(precision: str, decim: int, k: int, b: int, nout: int,
                     sms: int = _H100_SMS, cplx: int = REAL):
@@ -434,21 +476,27 @@ def _decim_mma_plan(precision: str, decim: int, k: int, b: int, nout: int,
     ccf 0.074-0.078 at one tile against 0.087-0.093 at two); a lone chunk
     is cut into blocks of fewer than 128 outputs so that it fills the card.
     ``cplx``: the stream mode, whose planes the block's shared memory
-    holds.  None when no block fits shared memory."""
+    holds.  At decimation 1 four tiles a block, a warp each, wherever the
+    grid still gives every SM two blocks (the WBFM bank as a complex
+    stream, ccf bf16x3 from a graph: 0.174-0.186 ms at four tiles, 0.199-
+    0.264 at two, 0.258-0.415 at one; 4097 taps 0.589-0.658 / 0.647-0.756
+    / 0.762-0.982), and at most ``_D1_TILES_A_BLOCK`` such tiles a block
+    (:func:`_d1_tiles`).  None when no block fits shared memory."""
     es = _elem_bytes(cplx)
-    for mtb, need in ((2, 2 * sms), (1, 0)):
+    options = ((4, 2 * sms),) if decim == 1 else ()
+    for mtb, need in options + ((2, 2 * sms), (1, 0)):
         smem = _decim_mma_smem(precision, es, k, decim, mtb, cplx)
         if (b * -(-nout // (128 * mtb)) >= need and smem <= _SMEM_OPTIN
-                and (mtb == 1 or 233472 // (smem + 1024) >= 4)):
+                and (mtb != 2 or 233472 // (smem + 1024) >= 4)):
             break
     else:
         return None
     to = 128 * mtb
     if mtb == 1 and b * -(-nout // 128) < sms:
         to = 8 * max(1, min(16, b * nout // (8 * sms)))
-    return mtb, to, _blocks_per_row(
+    return mtb, to, _d1_tiles(decim, _blocks_per_row(
         b, -(-nout // to), sms,
-        _decim_mma_smem(precision, es, k, decim, mtb, cplx))
+        _decim_mma_smem(precision, es, k, decim, mtb, cplx)))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -461,39 +509,51 @@ def _decim_fma_plan(precision: str, decim: int, k: int, b: int, nout: int,
     for kp in (4, 2, 1):
         smem = _decim_smem(precision, es, k, decim, kp, cplx)
         if kp <= decim and smem <= _SMEM_OPTIN:
-            return kp, _blocks_per_row(b, -(-nout // (1024 // kp)), sms, smem)
+            return kp, _d1_tiles(decim, _blocks_per_row(
+                b, -(-nout // (1024 // kp)), sms, smem))
     return None
 
 
 def _route(precision: str, decim: int, k: int, b: int, nout: int,
            fma: bool = False, cplx: int = REAL) -> str:
-    """Which kernel a single-stage call takes: "toeplitz" (decimation 1,
-    bf16 / bf16x3, ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS`` taps), "decim_mma"
-    (decimation > 1, bf16 / bf16x3, from ``_dm_min_taps`` taps), "decim_fma"
-    (decimation > 1 otherwise), "tile" (decimation 1 otherwise, and windows
-    too large for the decimating kernels' shared memory) or "empty" (no
-    output).  ``fma`` forces the CUDA cores, for timing the routes side by
-    side.  A complex stream (``cplx`` CCF or CCC) takes the decimating
-    kernels in their complex mode, one launch; where the real stream would
-    take "tile" or "toeplitz" (decimation 1, or a window too large for the
-    decimating kernels) it takes "planes": the real FIR over its stacked re
-    and im planes, chosen by shape alone."""
+    """Which kernel a single-stage call takes: "toeplitz" (a real stream at
+    decimation 1, bf16 / bf16x3, ``_TZ_MIN_TAPS`` to ``_TZ_MAX_TAPS``
+    taps), "decim_mma" (decimation > 1, bf16 / bf16x3, from
+    ``_dm_min_taps`` taps), "decim_fma" (decimation > 1 otherwise), "tile"
+    (decimation 1 otherwise, and windows too large for the decimating
+    kernels' shared memory) or "empty" (no output).  ``fma`` forces the
+    CUDA cores, for timing the routes side by side.  A complex stream
+    (``cplx`` CCF or CCC) takes the same kernels in their complex mode, one
+    launch, and at decimation 1 follows the record (``sweep_plans
+    --decim1``): "decim_mma" in the bf16 modes from ``_dm_min_taps`` taps,
+    otherwise "decim_fma" below ``_D1_TILE_TAPS`` taps and "tile" from
+    them.  It takes "planes" (the real FIR over its stacked re and im
+    planes, on the card too) only where the stacked planes on
+    ``fir_toeplitz_fwd`` measured faster (bf16 modes at decimation 1 from
+    ``_D1_PLANES_TAPS`` taps) and where no complex plan fits shared
+    memory; chosen by shape alone."""
     if b == 0 or nout == 0:
         return "empty"
     tensor = precision != "f32" and not fma
-    if decim == 1:
-        if cplx:
-            return "planes"
+    if decim == 1 and not cplx:
         if tensor and _TZ_MIN_TAPS <= k <= _TZ_MAX_TAPS[precision]:
             return "toeplitz"
         return "tile"
+    if (decim == 1 and tensor
+            and _D1_PLANES_TAPS[cplx] <= k <= _TZ_MAX_TAPS[precision]):
+        return "planes"
     if (tensor and k >= _dm_min_taps(precision, decim, cplx)
             and _decim_mma_plan(precision, decim, k, b, nout,
                                 cplx=cplx) is not None):
         return "decim_mma"
-    if _decim_fma_plan(precision, decim, k, b, nout, cplx=cplx) is not None:
+    if ((decim > 1 or k < _D1_TILE_TAPS)
+            and _decim_fma_plan(precision, decim, k, b, nout,
+                                cplx=cplx) is not None):
         return "decim_fma"
-    return "planes" if cplx else "tile"
+    if not cplx or _tile_plan(precision, decim, k, b, nout,
+                              cplx=cplx) is not None:
+        return "tile"
+    return "planes"
 
 
 class _Plan(NamedTuple):
@@ -528,20 +588,31 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=4096)
 def _tile_plan(precision: str, decim: int, k: int, b: int, nout: int,
-               sms: int = _H100_SMS):
-    """(threads, kblk) for ``fir_tile_fwd``: bound the window a tile spans,
-    then shrink tiles until the grid fills the card twice over (or the
-    tiles reach one warp)."""
+               sms: int = _H100_SMS, cplx: int = REAL):
+    """(threads, kblk) for ``fir_tile_fwd`` in stream mode ``cplx``: bound
+    the window a tile spans, then shrink tiles until the grid fills the
+    card twice over (or the tiles reach one warp).  Where the block does
+    not fit shared memory (a complex stream's two windows and ccc's two
+    tap rows at high decimations), halve the taps a pass down to 256,
+    then the threads down to one warp, then the taps again.  None when
+    nothing fits."""
     threads = _THREADS
     while threads > 32 and threads * 8 * decim > _MAX_TILE_SPAN:
         threads //= 2
     while threads > 32 and b * -(-nout // (threads * 8)) < 2 * sms:
         threads //= 2
     kblk = min(k, _KBLK)
-    if _tile_smem(precision, threads, decim, kblk) > _SMEM_OPTIN:
-        raise ValueError(f"decimation {decim} needs a window larger than "
-                         f"shared memory")
+    while _tile_smem(precision, threads, decim, kblk, cplx) > _SMEM_OPTIN:
+        if kblk > 256:
+            kblk = -(-kblk // 2)
+        elif threads > 32:
+            threads //= 2
+        elif kblk > 8:
+            kblk = -(-kblk // 2)
+        else:
+            return None
     return threads, kblk
 
 
@@ -567,6 +638,17 @@ def _decim_launch(name: str, b: int, total: int, g: int, k: int,
                   _PRECISION_CODE[precision]) + tuple(plan) + (cplx,))
 
 
+def _tile_launch(b: int, total: int, g: int, k: int, decim: int, lead: int,
+                 nout: int, precision: str, plan, cplx: int = REAL) -> _Plan:
+    """The launch of ``fir_tile_fwd`` with launch parameters ``plan``
+    (threads, kblk) in stream mode ``cplx``."""
+    from grtpu_torch.ops._build import library
+
+    return _Plan("fir_tile_fwd", library().fir_tile_fwd,
+                 (b, total, g, k, decim, lead, nout,
+                  _PRECISION_CODE[precision]) + tuple(plan) + (cplx,))
+
+
 @functools.lru_cache(maxsize=4096)
 def _launch_plan(b: int, total: int, g: int, k: int, decim: int, lead: int,
                  nout: int, precision: str, index: int, fma: bool = False,
@@ -579,14 +661,9 @@ def _launch_plan(b: int, total: int, g: int, k: int, decim: int, lead: int,
 
     lib = library()
     sms = _sm_count(index)
-    code = _PRECISION_CODE[precision]
     route = _route(precision, decim, k, b, nout, fma, cplx)
     if route == "empty":
         return None
-    if route == "planes":
-        raise ValueError("a complex stream takes the plane path here "
-                         "(decimation 1 or an oversized window); no "
-                         "complex-mode launch exists for it")
     if route == "toeplitz":
         return _toeplitz_launch(lib, b, total, g, k, lead, nout, precision, sms)
     if route == "decim_mma":
@@ -597,9 +674,12 @@ def _launch_plan(b: int, total: int, g: int, k: int, decim: int, lead: int,
         return _decim_launch(
             "fir_decim_fwd", b, total, g, k, decim, lead, nout, precision,
             _decim_fma_plan(precision, decim, k, b, nout, sms, cplx), cplx)
-    plan = _tile_plan(precision, decim, k, b, nout, sms)
-    return _Plan("fir_tile_fwd", lib.fir_tile_fwd,
-                 (b, total, g, k, decim, lead, nout, code) + plan)
+    plan = _tile_plan(precision, decim, k, b, nout, sms, cplx)
+    if plan is None:
+        raise ValueError(f"decimation {decim} needs a window larger than "
+                         f"shared memory")
+    return _tile_launch(b, total, g, k, decim, lead, nout, precision, plan,
+                        cplx)
 
 
 def _raw_stream(index: int) -> int:
@@ -649,8 +729,8 @@ def _launch_tile(x, tapsets, decim, lead, nout, precision, _fma=False,
     (``_fma`` forces the CUDA cores, ``_plan`` another plan than
     :func:`_launch_plan`'s, both for timing choices side by side).  x: (B,
     total) contiguous; tapsets: (K,) or (G, K) float32 contiguous on x's
-    device.  In the complex modes (``cplx`` CCF, CCC; decimation > 1) x and
-    the output are complex64, and the taps too in CCC."""
+    device.  In the complex modes (``cplx`` CCF, CCC) x and the output are
+    complex64, and the taps too in CCC."""
     b, total = x.shape
     g, k = (1, tapsets.shape[0]) if tapsets.ndim == 1 else tapsets.shape
     index = x.device.index
@@ -890,17 +970,18 @@ def _complex_taps(taps, device, cplx: int) -> torch.Tensor:
     return _tapsets(taps, device)
 
 
-def _decim_complex(x, taps, decim, precision, cplx):
+def _decim_complex(x, taps, decim, precision, cplx, _force_planes=False):
     """``fir_decim_c`` (ccf) and ``fir_decim_cc`` (ccc) on a (C, n + K - 1)
     complex64 stream, channel c on tap set c % G of (G, K) taps for both
     its planes, on every route.  A ccc call with real taps takes ccf, whose
-    sums are the same (the ti plane is zero).  On the card at decimation >
-    1: one launch of a decimating kernel in its complex mode.  Elsewhere
-    (the CPU, and :func:`_route`'s "planes" by shape) the real FIR over the
-    stacked re / im planes, rows c and C + c: ccf one pass, ccc one a tap
-    plane.  The real FIR gives row r set r % G, which is c % G for row
-    C + c only where G divides C; otherwise the sets are first laid out one
-    a plane row."""
+    sums are the same (the ti plane is zero).  On the card: one launch of
+    the kernel :func:`_route` names in its complex mode.  Elsewhere (the
+    CPU, where the twins run; on the card :func:`_route`'s "planes"
+    shapes, or any shape with ``_force_planes``, which is there for timing
+    this path beside the launch) the real FIR over the stacked planes,
+    rows c and C + c: ccf one pass, ccc one a tap plane.  The real FIR
+    gives row r set r % G, which is c % G for row C + c only where G
+    divides C; otherwise the sets are first laid out one a plane row."""
     _check_precision(precision)
     if x.dtype != torch.complex64:
         raise TypeError(f"expected a complex64 stream, got {x.dtype}")
@@ -917,7 +998,7 @@ def _decim_complex(x, taps, decim, precision, cplx):
     n = total - (k - 1)
     if n % d:
         raise ValueError("fresh input must be a multiple of decim")
-    if (_device_kind(x) == "cuda"
+    if (_device_kind(x) == "cuda" and not _force_planes
             and _route(precision, d, k, c, n // d, cplx=cplx) != "planes"):
         tapsets = _complex_taps(taps, x.device, cplx)
         return _launch_tile(x.contiguous(), tapsets, d, 0, n // d, precision,
@@ -939,9 +1020,10 @@ def fir_decim_c(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
     """Complex-stream real-taps (ccf) FIR with optional decimation: x (C,
     n + K - 1) or (n + K - 1,) complex64 carrying K-1 history, n // decim
     outputs.  Row c takes tap set c % G of (G, K) taps, for its re and im
-    planes alike, on every route.  On the card at decimation > 1 one launch
-    reads the interleaved stream and writes the complex64 output; otherwise
-    the two real planes ride the real kernel as extra batch rows."""
+    planes alike, on every route.  On the card one launch reads the
+    interleaved stream and writes the complex64 output (but for
+    :func:`_route`'s "planes" shapes); on the CPU the two real planes ride
+    the real twin as extra batch rows."""
     if x.ndim == 1:
         return fir_decim_c(x[None, :], taps, decim, tile_rows, precision)[0]
     return _decim_complex(x, taps, decim, precision, CCF)
@@ -951,9 +1033,10 @@ def fir_decim_cc(x: torch.Tensor, taps, decim: int = 1, tile_rows: int = 1024,
                  precision: str = "bf16x3") -> torch.Tensor:
     """Complex-stream complex-taps (ccc): (r*tr - i*ti) + j(r*ti + i*tr),
     row c on tap set c % G of (G, K) taps for both planes, on every route.
-    On the card at decimation > 1 one launch over both tap planes reads the
-    interleaved stream and writes the complex64 output; otherwise one launch
-    of the real kernel per tap plane over the stacked re / im planes."""
+    On the card one launch over both tap planes reads the interleaved stream
+    and writes the complex64 output (but for :func:`_route`'s "planes"
+    shapes); on the CPU the real twin runs once per tap plane over the
+    stacked re / im planes."""
     if x.ndim == 1:
         return fir_decim_cc(x[None, :], taps, decim, tile_rows, precision)[0]
     return _decim_complex(x, taps, decim, precision, CCC)

@@ -22,7 +22,16 @@ functions can be held against the card they run on:
   to 256 taps in bf16 and bf16x3, with the route ``cuda_fir._route`` takes,
   for the real stream and for both complex modes (``_dm_min_taps``'
   crossovers);
-* the f32 cascade (16 x 2^20, 16 stages of 256 taps): tile and threads.
+* the f32 cascade (16 x 2^20, 16 stages of 256 taps): tile and threads;
+* a complex stream at decimation 1 (ccf, ccc), 64 x 2^15 outputs at 16 to
+  4097 taps and the WBFM bank's 64 x 2^18 at 155, every precision: the
+  routes side by side (``fir_decim_mma_fwd`` at decimation 1, the complex
+  mode of ``fir_tile_fwd``, ``fir_decim_fwd`` at decimation 1 and the real
+  kernel over the stacked planes), the route a call takes marked, and each
+  route's plans at the bank's shape and at 1024 and 4097 taps; and the
+  bank's real stream at decimation 1, ``fir_toeplitz_fwd`` beside
+  ``fir_decim_mma_fwd``.  ``python -m grtpu_torch.ops.sweep_plans
+  --decim1`` runs this part alone.
 
 The decimating rows are replayed from a CUDA graph of 20 launches (the
 card's time without the host's launch cost), the cascade is timed with CUDA
@@ -78,12 +87,17 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 def decim_rows(name, x, taps, d, nout, precision, label, plans, chosen,
                cplx=cf.REAL):
-    """One line per plan of a decimating kernel on (x, taps)."""
+    """One line per plan of a decimating kernel (or of fir_tile_fwd) on (x,
+    taps)."""
     b, total = x.shape
     g, k = taps.shape
     for plan in plans + ([] if chosen in plans else [chosen]):
-        launch = cf._decim_launch(name, b, total, g, k, d, 0, nout, precision,
-                                  plan, cplx)
+        if name == "fir_tile_fwd":
+            launch = cf._tile_launch(b, total, g, k, d, 0, nout, precision,
+                                     plan, cplx)
+        else:
+            launch = cf._decim_launch(name, b, total, g, k, d, 0, nout,
+                                      precision, plan, cplx)
         ms = graph_ms(lambda: cf._launch_tile(x, taps, d, 0, nout, precision,
                                               _plan=launch, cplx=cplx))
         mark = "  <- chosen" if plan == chosen else ""
@@ -144,6 +158,108 @@ def route_times(x, taps, d, nout, precision, cplx, sms) -> str:
     return " ".join(out) + f" takes {route}"
 
 
+def decim1_rows(x, taps, precision, cplx, sms, label):
+    """The routes of a complex call at decimation 1 on (x, taps), each
+    replayed from a CUDA graph: fir_decim_mma_fwd (bf16 modes), the complex
+    mode of fir_tile_fwd, fir_decim_fwd at decimation 1 (one phase group)
+    and the real FIR over the stacked planes; the route a call takes is
+    marked with *."""
+    b, total = x.shape
+    g, k = taps.shape
+    nout = total - (k - 1)
+    chosen = cf._route(precision, 1, k, b, nout, cplx=cplx)
+    launches = [("tile", cf._tile_launch(
+        b, total, g, k, 1, 0, nout, precision,
+        cf._tile_plan(precision, 1, k, b, nout, sms, cplx), cplx))]
+    if precision != "f32":
+        launches.insert(0, ("decim_mma", cf._decim_launch(
+            "fir_decim_mma_fwd", b, total, g, k, 1, 0, nout, precision,
+            cf._decim_mma_plan(precision, 1, k, b, nout, sms, cplx), cplx)))
+    fma = cf._decim_fma_plan(precision, 1, k, b, nout, sms, cplx)
+    if fma is not None:
+        launches.append(("decim_fma", cf._decim_launch(
+            "fir_decim_fwd", b, total, g, k, 1, 0, nout, precision, fma,
+            cplx)))
+    out = []
+    for name, launch in launches:
+        ms = graph_ms(lambda: cf._launch_tile(x, taps, 1, 0, nout, precision,
+                                              _plan=launch, cplx=cplx))
+        out.append(f"{name}={ms:.4f}" + ("*" if name == chosen else ""))
+    ms = graph_ms(lambda: cf._decim_complex(x, taps, 1, precision, cplx,
+                                            _force_planes=True))
+    out.append(f"planes={ms:.4f}" + ("*" if chosen == "planes" else ""))
+    print(f"{label} {precision}: {' '.join(out)} ms (takes {chosen})",
+          flush=True)
+
+
+def decim1(dev, sms, rng):
+    """A complex stream at decimation 1: the routes side by side at 16 to
+    4097 taps (64 x 2^15 outputs) and at the WBFM bank's shape (64 x 2^18,
+    155 taps); the bank's real stream on fir_toeplitz_fwd and on
+    fir_decim_mma_fwd at decimation 1."""
+    n = 1 << 15
+    xr = torch.from_numpy(rng.randn(64, n + 4096).astype(np.float32)).to(dev)
+    xc = torch.complex(xr, xr.flip(0))
+    for k in (16, 32, 64, 155, 256, 512, 1024, 2048, 4097):
+        t = np.random.RandomState(k).randn(k) / np.sqrt(k)
+        tsets = {cf.CCF: cf._tapsets(t, dev),
+                 cf.CCC: torch.from_numpy(rotate_taps(t, 0.25, 1.0))[None]
+                 .to(dev)}
+        xs = xc[:, :n + k - 1].contiguous()
+        for cplx, mode in ((cf.CCF, "ccf"), (cf.CCC, "ccc")):
+            for precision in ("f32", "bf16x3", "bf16"):
+                decim1_rows(xs, tsets[cplx], precision, cplx, sms,
+                            f"decim1 routes 64x2^15 K{k} {mode}")
+            if k in (1024, 4097):
+                decim_rows("fir_decim_mma_fwd", xs, tsets[cplx], 1, n,
+                           "bf16x3", f"decim1 64x2^15 K{k} {mode} "
+                           f"(mtb, to, tpb)",
+                           [(mtb, 128 * mtb, tpb) for mtb in (4, 2, 1)
+                            for tpb in (1, 4, 16)],
+                           cf._decim_mma_plan("bf16x3", 1, k, 64, n, sms,
+                                              cplx), cplx)
+    del xr, xc, xs
+    taps155 = firdes.low_pass(1.0, 256e3, 15e3, 4e3)
+    k, n = len(taps155), 1 << 18
+    x = torch.from_numpy(rng.randn(64, n + k - 1).astype(np.float32)).to(dev)
+    xc = torch.complex(x, x.flip(0))
+    tsets = {cf.CCF: cf._tapsets(taps155, dev),
+             cf.CCC: torch.from_numpy(rotate_taps(taps155, 0.25, 1.0))[None]
+             .to(dev)}
+    for cplx, mode in ((cf.CCF, "ccf"), (cf.CCC, "ccc")):
+        for precision in ("f32", "bf16x3", "bf16"):
+            decim1_rows(xc, tsets[cplx], precision, cplx, sms,
+                        f"decim1 routes bank 64x2^18 K{k} {mode}")
+        # each route's plans at the bank's shape
+        for precision in ("bf16x3", "bf16"):
+            decim_rows("fir_decim_mma_fwd", xc, tsets[cplx], 1, n, precision,
+                       f"decim1 bank {mode} (mtb, to, tpb)",
+                       [(mtb, 128 * mtb, tpb) for mtb in (4, 2, 1)
+                        for tpb in TPBS],
+                       cf._decim_mma_plan(precision, 1, k, 64, n, sms, cplx),
+                       cplx)
+        decim_rows("fir_decim_fwd", xc, tsets[cplx], 1, n, "f32",
+                   f"decim1 bank {mode} (kp, tpb)",
+                   [(1, tpb) for tpb in TPBS],
+                   cf._decim_fma_plan("f32", 1, k, 64, n, sms, cplx), cplx)
+        decim_rows("fir_tile_fwd", xc, tsets[cplx], 1, n, "f32",
+                   f"decim1 bank {mode} (threads, kblk)",
+                   [(th, k) for th in (256, 128, 64)] + [(256, 80)],
+                   cf._tile_plan("f32", 1, k, 64, n, sms, cplx), cplx)
+    del xc
+    t = tsets[cf.CCF]
+    for precision in ("bf16x3", "bf16"):
+        tz = graph_ms(lambda: cf._launch_toeplitz(x, t, 0, n, precision))
+        launch = cf._decim_launch(
+            "fir_decim_mma_fwd", 64, x.shape[1], 1, k, 1, 0, n, precision,
+            cf._decim_mma_plan(precision, 1, k, 64, n, sms))
+        mma = graph_ms(lambda: cf._launch_tile(x, t, 1, 0, n, precision,
+                                               _plan=launch))
+        print(f"decim1 real bank 64x2^18 K{k} {precision}: "
+              f"fir_toeplitz_fwd={tz:.4f} fir_decim_mma_fwd={mma:.4f} ms "
+              f"(takes {cf._route(precision, 1, k, 64, n)})", flush=True)
+
+
 def main():
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -155,6 +271,8 @@ def main():
     _build.library()
     sms = cf._sm_count(0)
     rng = np.random.RandomState(0)
+    if "--decim1" in sys.argv[1:]:
+        return decim1(dev, sms, rng)
 
     # the WBFM bank
     taps155 = cf._tapsets(firdes.low_pass(1.0, 256e3, 15e3, 4e3), dev)
@@ -249,6 +367,9 @@ def main():
         mark = "  <- chosen" if plan == chosen else ""
         print(f"cascade 16x2^20 S16 K256 f32 (tile, threads)={plan}: "
               f"{ms:.4f} ms{mark}", flush=True)
+    del x
+
+    decim1(dev, sms, rng)
 
 
 if __name__ == "__main__":

@@ -431,10 +431,11 @@ class TestDecimTensorRoute:
     @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
     @pytest.mark.parametrize("rows", [1, 4])
     @pytest.mark.parametrize("k", [33, 155, 193])
-    @pytest.mark.parametrize("d", [2, 4, 8])
+    @pytest.mark.parametrize("d", [1, 2, 4, 8])
     def test_vs_twin(self, d, k, rows, precision):
         """An output count that is no multiple of 8, a lead, and row b on
-        tap set b % G (two sets where there are four rows)."""
+        tap set b % G (two sets where there are four rows); at decimation 1
+        a tile is 128 consecutive outputs, 16 windows 8 samples apart."""
         rng = np.random.RandomState(1000 * d + k + rows)
         g = 2 if rows == 4 else 1
         ts = T((rng.randn(g, k) / np.sqrt(k)).astype(np.float32))
@@ -517,6 +518,90 @@ class TestDecimTensorRoute:
         want = np.array([[np.dot(ts[r % g][::-1], xp[r, i * d:i * d + k])
                           for i in range(nout)] for r in range(b)])
         assert rel(got, want) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("cplx", [1, 2])
+    @pytest.mark.parametrize("k", [16, 155])
+    def test_decim1_complex_vs_twin(self, k, cplx, precision):
+        """The tensor-core route's plain form at decimation 1 over a complex
+        stream's planes, one sum a (stream plane, tap plane) pair combined
+        as fir_decim_mma_fwd's complex modes combine them, against
+        fir_decim_cplx_ref (fir_tile_ref a pair): a lead, an output count
+        no multiple of 8, two tap sets on three rows, zeros past the
+        stream's end."""
+        rng = np.random.RandomState(80 + k + cplx)
+        b, g, lead, nout = 3, 2, 11, 8 * 29 + 3
+        x = T((rng.randn(b, nout + k - 1 - lead - 5)
+               + 1j * rng.randn(b, nout + k - 1 - lead - 5))
+              .astype(np.complex64))
+        ts = rng.randn(g, k) / np.sqrt(k)
+        if cplx == cf.CCC:
+            ts = ts + 1j * rng.randn(g, k) / np.sqrt(k)
+        ts = T(ts.astype(np.complex64 if cplx == cf.CCC else np.float32))
+
+        def mma(plane, t):
+            return cf.fir_decim_mma_ref(plane, t.contiguous(), 1, lead, nout,
+                                        precision)
+
+        if cplx == cf.CCF:
+            got = torch.complex(mma(x.real, ts), mma(x.imag, ts))
+        else:
+            tr, ti = ts.real, ts.imag
+            got = torch.complex(mma(x.real, tr) - mma(x.imag, ti),
+                                mma(x.real, ti) + mma(x.imag, tr))
+        ref = cf.fir_decim_cplx_ref(x, ts, 1, lead, nout, precision, cplx)
+        assert got.shape == ref.shape == (b, nout)
+        assert rel(got.numpy(), ref.numpy()) < TOL[precision]
+
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("g,c", [(1, 3), (2, 4), (3, 6), (2, 3)])
+    @pytest.mark.parametrize("sig", ["ccf", "ccc"])
+    def test_decim1_vs_pallas(self, sig, g, c, precision):
+        """fir_decim_cplx_ref at decimation 1, the plain form of both
+        one-launch routes there, against grtpu: at G = 1 its fir_decim_c /
+        fir_decim_cc in interpret mode; where G divides C its stacked
+        planes through the kernel fir_decim_c takes at decimation 1
+        (_phase_batched, row C + c on set (C + c) % G = c % G); where G
+        does not divide C, grtpu's planes would give row C + c another set,
+        so against a per-row float64 sum.  The port's public call on the
+        CPU tensor gives the same."""
+        rng = np.random.RandomState(90 + 10 * g + c)
+        k, n = 37, 200
+        x = (rng.randn(c, n + k - 1) + 1j * rng.randn(c, n + k - 1)).astype(
+            np.complex64)
+        taps = rng.randn(g, k) / np.sqrt(k)
+        if sig == "ccc":
+            taps = taps + 1j * rng.randn(g, k) / np.sqrt(k)
+        taps = taps.astype(np.complex64 if sig == "ccc" else np.float32)
+        cplx = cf.CCF if sig == "ccf" else cf.CCC
+        got = cf.fir_decim_cplx_ref(T(x), T(taps), 1, 0, n, precision, cplx)
+        if g == 1:
+            fn = jpf.fir_decim_c if sig == "ccf" else jpf.fir_decim_cc
+            ref = np.asarray(fn(jnp.asarray(x), taps[0], 1, interpret=True,
+                                precision=precision))
+        elif c % g == 0:
+            planes = jnp.asarray(np.concatenate([x.real, x.imag]))
+
+            def grid(t):
+                return np.asarray(jpf._phase_batched(
+                    planes, [np.ascontiguousarray(r, np.float32) for r in t],
+                    n, 1024, True, precision))[:, :n]
+
+            if sig == "ccf":
+                y = grid(taps)
+                ref = y[:c] + 1j * y[c:]
+            else:
+                yr, yi = grid(taps.real), grid(taps.imag)
+                ref = (yr[:c] - yi[c:]) + 1j * (yi[:c] + yr[c:])
+        else:
+            xd = x.astype(np.complex128)
+            ref = np.array([[np.dot(taps[r % g][::-1].astype(np.complex128),
+                                    xd[r, i:i + k]) for i in range(n)]
+                            for r in range(c)])
+        assert got.dtype == torch.complex64 and got.shape == (c, n)
+        assert rel(got.numpy(), ref) < TOL[precision]
+        fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+        assert torch.equal(fn(T(x), taps, 1, precision=precision), got)
 
     def test_short_stream_and_bf16_resident_input(self):
         """A stream shorter than one window reads zeros past its end, and a
@@ -635,10 +720,76 @@ class TestRoutesAndPlans:
                 smem = cf._decim_smem(precision, 8, k, d, kp, cplx)
             assert smem <= 232448
 
+    @pytest.mark.parametrize("cplx", [1, 2])
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("k", [16, 155, 4097])
+    def test_decim1_complex_plans_fit_shared_memory(self, k, precision,
+                                                    cplx):
+        """A complex stream at decimation 1 takes one launch as the record
+        has it: the tensor cores in the bf16 modes, fir_decim_fwd (one phase
+        group) in f32 below _D1_TILE_TAPS taps and fir_tile_fwd's complex
+        mode from them; only the bf16 modes' long filters take the stacked
+        planes on fir_toeplitz_fwd.  Every route's block fits the 232,448
+        bytes a block may opt into, four tensor-core tiles a block where
+        the grid fills the card twice, at most two tiles a block."""
+        want = {16: ("decim_fma", "decim_mma"), 155: ("decim_fma",
+                                                       "decim_mma"),
+                4097: ("tile", "planes")}[k][precision != "f32"]
+        for b, nout in ((1, 65536), (64, 1 << 18), (3, 1000)):
+            assert cf._route(precision, 1, k, b, nout, cplx=cplx) == want
+            if precision != "f32":
+                mtb, to, tpb = cf._decim_mma_plan(precision, 1, k, b, nout,
+                                                  cplx=cplx)
+                assert cf._decim_mma_smem(precision, 8, k, 1, mtb,
+                                          cplx) <= 232448
+                assert tpb <= cf._D1_TILES_A_BLOCK
+                if b * -(-nout // 512) >= 2 * cf._H100_SMS:
+                    assert (mtb, to) == (4, 512)
+            threads, kblk = cf._tile_plan(precision, 1, k, b, nout,
+                                          cplx=cplx)
+            assert cf._tile_smem(precision, threads, 1, kblk,
+                                 cplx) <= 232448
+            kp, tpb = cf._decim_fma_plan(precision, 1, k, b, nout, cplx=cplx)
+            assert kp == 1 and tpb <= cf._D1_TILES_A_BLOCK
+            assert cf._decim_smem(precision, 8, k, 1, kp, cplx) <= 232448
+
+    @pytest.mark.parametrize("cplx", [0, 1, 2])
+    @pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+    @pytest.mark.parametrize("d", [1, 3, 16])
+    @pytest.mark.parametrize("k", [16, 155, 4097])
+    def test_tile_plans_fit_shared_memory(self, k, d, precision, cplx):
+        """fir_tile_fwd's block in every stream mode: the complex modes'
+        two windows (and ccc's two tap rows) twice the real block's, within
+        the 232,448 bytes at 4097 taps, threads * 8 outputs a tile spanning
+        at most _MAX_TILE_SPAN samples; the real plan is the parent's."""
+        for b, nout in ((1, 8192), (64, 1 << 15)):
+            threads, kblk = cf._tile_plan(precision, d, k, b, nout,
+                                          cplx=cplx)
+            assert 32 <= threads <= cf._THREADS and 1 <= kblk <= cf._KBLK
+            assert cf._tile_smem(precision, threads, d, kblk,
+                                 cplx) <= 232448
+            if cplx:
+                assert cf._tile_smem(precision, threads, d, kblk, cplx) > \
+                    cf._tile_smem(precision, threads, d, kblk)
+            else:
+                assert kblk == min(k, cf._KBLK)
+
+    def test_tile_plan_shrinks_to_fit(self):
+        """Where a complex block does not fit shared memory, the taps a pass
+        shrink first, then the threads; where nothing fits, None (and the
+        complex route falls back to "planes" only there)."""
+        plan = cf._tile_plan("bf16x3", 40, 60000, 2, 500, cplx=cf.CCC)
+        assert plan is not None and plan[1] < cf._KBLK
+        assert cf._tile_smem("bf16x3", plan[0], 40, plan[1],
+                             cf.CCC) <= cf._SMEM_OPTIN
+        assert cf._tile_plan("bf16x3", 100, 60000, 2, 500,
+                             cplx=cf.CCC) is None
+        assert cf._route("bf16x3", 100, 8, 2, 500, cplx=cf.CCC) == "planes"
+
     @pytest.mark.parametrize("precision,d,k,b,nout,cplx,want", [
-        ("bf16x3", 1, 99, 1, 65536, 2, "planes"),
-        ("f32", 1, 4097, 16, 1 << 20, 1, "planes"),
-        ("bf16", 1, 64, 2, 100, 1, "planes"),
+        ("bf16x3", 1, 99, 1, 65536, 2, "decim_mma"),
+        ("f32", 1, 4097, 16, 1 << 20, 1, "tile"),
+        ("bf16", 1, 64, 2, 100, 1, "decim_mma"),
         ("bf16x3", 8, 155, 64, 1 << 15, 1, "decim_mma"),
         ("bf16x3", 8, 99, 1, 65536, 2, "decim_mma"),
         ("f32", 8, 155, 64, 1 << 15, 2, "decim_fma"),
@@ -646,12 +797,37 @@ class TestRoutesAndPlans:
         ("bf16x3", 2, 9, 1, 32, 2, "decim_fma"),
         ("bf16", 8, 15, 4, 4096, 1, "decim_fma"),
         ("f32", 16, 4097, 2, 300, 2, "decim_fma"),
-        ("f32", 3, 60000, 2, 500, 1, "planes"),
+        ("f32", 3, 60000, 2, 500, 1, "tile"),
         ("bf16x3", 8, 155, 0, 100, 2, "empty"),
+        # the crossovers at decimation 1: the tensor cores from
+        # _dm_min_taps taps, fir_decim_fwd below; in f32 fir_decim_fwd
+        # below _D1_TILE_TAPS, fir_tile_fwd from them; the bf16 modes' long
+        # filters on the stacked planes (fir_toeplitz_fwd) from
+        # _D1_PLANES_TAPS to _TZ_MAX_TAPS
+        ("bf16x3", 1, cf._dm_min_taps("bf16x3", 1, 1), 4, 4096, 1,
+         "decim_mma"),
+        ("bf16x3", 1, cf._dm_min_taps("bf16x3", 1, 1) - 1, 4, 4096, 1,
+         "decim_fma"),
+        ("bf16", 1, cf._dm_min_taps("bf16", 1, 2), 64, 1 << 18, 2,
+         "decim_mma"),
+        ("bf16", 1, cf._dm_min_taps("bf16", 1, 2) - 1, 64, 1 << 18, 2,
+         "decim_fma"),
+        ("f32", 1, 155, 64, 1 << 18, 2, "decim_fma"),
+        ("f32", 1, cf._D1_TILE_TAPS - 1, 4, 4096, 2, "decim_fma"),
+        ("f32", 1, cf._D1_TILE_TAPS, 4, 4096, 1, "tile"),
+        ("bf16x3", 1, cf._D1_PLANES_TAPS[1] - 1, 4, 4096, 1, "decim_mma"),
+        ("bf16x3", 1, cf._D1_PLANES_TAPS[1], 4, 4096, 1, "planes"),
+        ("bf16", 1, cf._D1_PLANES_TAPS[2] - 1, 4, 4096, 2, "decim_mma"),
+        ("bf16", 1, cf._D1_PLANES_TAPS[2], 4, 4096, 2, "planes"),
+        ("bf16x3", 1, cf._TZ_MAX_TAPS["bf16x3"] + 1, 4, 4096, 1,
+         "decim_mma"),
     ])
     def test_complex_route(self, precision, d, k, b, nout, cplx, want):
-        """Decimation 1 and windows too large for the decimating kernels
-        take the plane path, by shape; every other complex call one launch."""
+        """A complex call is one launch by shape, as the record has it:
+        decimation 1 on the tensor cores, fir_decim_fwd or fir_tile_fwd,
+        windows too large for the decimating kernels fir_tile_fwd's complex
+        mode; the stacked planes only for the bf16 modes' long filters at
+        decimation 1, where they measured faster."""
         assert cf._route(precision, d, k, b, nout, cplx=cplx) == want
 
     def test_complex_ring_only_where_it_fits(self):

@@ -253,6 +253,18 @@ def fma_route(x, ts, d, lead, nout, precision, cplx=0, plan=None):
                            cplx=cplx)
 
 
+def tile_route(x, ts, d, lead, nout, precision, cplx=0, plan=None):
+    """fir_tile_fwd whatever the route (``plan``: another (threads, kblk)
+    than the planner's)."""
+    b, total = x.shape
+    g, k = ts.shape
+    launch = cf._tile_launch(
+        b, total, g, k, d, lead, nout, precision,
+        plan or cf._tile_plan(precision, d, k, b, nout, cplx=cplx), cplx)
+    return cf._launch_tile(x, ts, d, lead, nout, precision, _plan=launch,
+                           cplx=cplx)
+
+
 @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
 @pytest.mark.parametrize("k,d,b,nout,lead,g,total", ODD_DECIM_CASES)
 def test_decim_tensor_core_route(dev, precision, k, d, b, nout, lead, g,
@@ -335,7 +347,8 @@ def test_shared_memory_sizes_match_the_library(dev):
     lib = library()
     for precision, code in cf._PRECISION_CODE.items():
         for k, d in ((155, 8), (193, 8), (33, 2), (4097, 16), (7, 5), (200, 4),
-                     (40, 3), (99, 8), (96, 2), (4097, 8), (2100, 3)):
+                     (40, 3), (99, 8), (96, 2), (4097, 8), (2100, 3),
+                     (155, 1), (16, 1), (4097, 1), (99, 1)):
             for v in (1, 2, 4):
                 for es, cplx in ((4, 0), (2, 0), (8, 1), (8, 2)):
                     assert lib.fir_decim_smem(code, es == 2, k, d, v,
@@ -347,9 +360,11 @@ def test_shared_memory_sizes_match_the_library(dev):
         for k, s, t in ((256, 16, 16384), (5, 2, 256), (64, 3, 8192)):
             assert lib.fir_cascade_smem(code, k, s, t) == \
                 cf._cascade_smem(precision, k, s, t)
-        for th, d, kb in ((256, 1, 2048), (32, 8, 193), (64, 3, 2048)):
-            assert lib.fir_tile_smem(code, th, d, kb) == \
-                cf._tile_smem(precision, th, d, kb)
+        for th, d, kb in ((256, 1, 2048), (32, 8, 193), (64, 3, 2048),
+                          (128, 1, 155), (32, 40, 512)):
+            for cplx in (0, 1, 2):
+                assert lib.fir_tile_smem(code, th, d, kb, cplx) == \
+                    cf._tile_smem(precision, th, d, kb, cplx)
 
 
 def test_wbfm_kernel_graph_matches_plain(dev):
@@ -427,6 +442,14 @@ COMPLEX_CASES = [
     (64, 8, 2, 50, 500, 1, 100),          # the stream ends inside a window
     (96, 2, 4, 8192, 0, 1, None),         # the 4 x 8k cc case
     (4097, 16, 2, 300, 0, 1, None),       # no ring: windows from memory
+    # decimation 1: a tile of the tensor-core route is 128 consecutive
+    # outputs; fir_tile_fwd's complex mode
+    (155, 1, 3, 4097, 0, 1, None),        # several tiles, a ragged last one
+    (99, 1, 3, 1001, 98, 2, None),        # a lead, G does not divide C
+    (64, 1, 2, 1000, 0, 1, 1000 + 63 + 1),  # odd row length: 8-byte rows
+    (17, 1, 2, 50, 3, 1, 30),             # the stream ends inside a window
+    (16, 1, 1, 8192, 0, 1, None),         # a lone chunk, the shortest taps
+    (4097, 1, 2, 300, 0, 1, None),        # long taps: kblk blocks, no ring
 ]
 
 
@@ -439,9 +462,10 @@ def complex_params():
         k, d, b, nout = case[:4]
         for precision, route in (("f32", "fma"), ("bf16x3", "fma"),
                                  ("bf16", "fma"), ("bf16x3", "mma"),
-                                 ("bf16", "mma")):
-            planner = (cf._decim_mma_plan if route == "mma"
-                       else cf._decim_fma_plan)
+                                 ("bf16", "mma"), ("f32", "tile"),
+                                 ("bf16x3", "tile"), ("bf16", "tile")):
+            planner = {"mma": cf._decim_mma_plan, "fma": cf._decim_fma_plan,
+                       "tile": cf._tile_plan}[route]
             for cplx in (1, 2):
                 if planner(precision, d, k, b, nout, cplx=cplx) is not None:
                     out.append(case + (precision, route, cplx))
@@ -452,14 +476,16 @@ def complex_params():
                          complex_params())
 def test_complex_modes(dev, precision, route, cplx, k, d, b, nout, lead, g,
                        total):
-    """Both decimating kernels in both complex modes against their plain
-    form and against the real kernel over the stacked planes, at odd sizes:
-    one launch, the interleaved complex64 stream in and out."""
+    """Both decimating kernels and fir_tile_fwd in both complex modes
+    against their plain form and against the real kernel over the stacked
+    planes, at odd sizes and at decimation 1: one launch, the interleaved
+    complex64 stream in and out."""
     total = total or nout * d + k - 1 - lead
     x = crandn(dev, b, total, seed=k + d)
     ts = complex_taps(dev, cplx, g, k, seed=k + 1)
-    fn = mma_route if route == "mma" else fma_route
-    name = "fir_decim_mma_fwd" if route == "mma" else "fir_decim_fwd"
+    fn = {"mma": mma_route, "fma": fma_route, "tile": tile_route}[route]
+    name = {"mma": "fir_decim_mma_fwd", "fma": "fir_decim_fwd",
+            "tile": "fir_tile_fwd"}[route]
     before = dict(cf.launches)
     got = fn(x, ts, d, lead, nout, precision, cplx)
     torch.cuda.synchronize()
@@ -502,13 +528,29 @@ def test_complex_fma_plans(dev, precision, cplx, plan):
     assert rel(got, ref) < TOL[precision]
 
 
+@pytest.mark.parametrize("cplx", [1, 2])
+@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+@pytest.mark.parametrize("plan", [(256, 2048), (32, 64), (128, 8), (64, 513)])
+def test_complex_tile_plans(dev, precision, cplx, plan):
+    """Every (threads, kblk) of fir_tile_fwd gives the same outputs in the
+    complex modes, several passes of taps among them, at decimation 1 and
+    3."""
+    k, b, nout = 155, 3, 3000
+    ts = complex_taps(dev, cplx, 2, k, seed=6)
+    for d in (1, 3):
+        x = crandn(dev, b, nout * d + k - 1, seed=5 + d)
+        got = tile_route(x, ts, d, 7, nout, precision, cplx, plan)
+        ref = cf.fir_decim_cplx_ref(x, ts, d, 7, nout, precision, cplx)
+        assert rel(got, ref) < TOL[precision]
+
+
 @pytest.mark.parametrize("sig", ["ccf", "ccc"])
-@pytest.mark.parametrize("d", [2, 8])
+@pytest.mark.parametrize("d", [1, 2, 8])
 def test_complex_wrappers_one_launch(dev, sig, d):
-    """fir_decim_c / fir_decim_cc on the card at decimation > 1: one launch
-    of the route _route names, no copy of contiguous taps on the device,
-    numpy taps and a misaligned view of the stream alike; decimation 1 the
-    plane path."""
+    """fir_decim_c / fir_decim_cc on the card: one launch of the route
+    _route names, no copy of contiguous taps on the device, numpy taps and
+    a misaligned view of the stream alike; at decimation 1 in every
+    precision, a short stream too."""
     k, c, n = 96, 4, 2048
     flat = crandn(dev, c * (n * d + k - 1) + 1, seed=d)
     x = flat[1:].view(c, n * d + k - 1)       # rows start 8 bytes off
@@ -525,9 +567,20 @@ def test_complex_wrappers_one_launch(dev, sig, d):
     ref = cf.fir_decim_cplx_ref(x, ts, d, 0, n, "bf16x3", cplx)
     assert rel(got, ref) < TOL["bf16x3"]
     assert cf._complex_taps(ts, x.device, cplx) is ts
-    y1 = fn(x[:, :n + k - 1], ts, 1, precision="f32")
-    assert rel(y1, cf.fir_decim_cplx_ref(x[:, :n + k - 1], ts, 1, 0, n,
-                                         "f32", cplx)) < TOL["f32"]
+    for precision in ("f32", "bf16", "bf16x3"):
+        for nn in (n, 5):
+            xs = x[:, :nn + k - 1]
+            route = cf._route(precision, 1, k, c, nn, cplx=cplx)
+            name = {"decim_mma": "fir_decim_mma_fwd",
+                    "decim_fma": "fir_decim_fwd"}[route]
+            before = dict(cf.launches)
+            y1 = fn(xs, ts, 1, precision=precision)
+            assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+                    if cf.launches[nm] != before[nm]} == {name: 1}
+            assert rel(y1, cf.fir_decim_cplx_ref(
+                xs, ts, 1, 0, nn, precision, cplx)) < TOL[precision]
+            assert torch.equal(fn(xs, ts.cpu().numpy(), 1,
+                                  precision=precision), y1)
 
 
 @pytest.mark.parametrize("sig", ["ccf", "ccc"])
@@ -535,21 +588,28 @@ def test_complex_wrappers_one_launch(dev, sig, d):
 @pytest.mark.parametrize("k,d,c,g,n", [(155, 1, 5, 3, 3000),
                                        (16385, 16, 3, 2, 40)])
 def test_complex_wrappers_planes_tapsets(dev, sig, precision, k, d, c, g, n):
-    """fir_decim_c / fir_decim_cc on the "planes" route (decimation 1, and
-    a window no decimating plan fits) with (G, K) taps where G does not
-    divide the channels: channel c on set c % G for both planes, one
-    launch of the real kernel a tap plane, numpy taps alike."""
+    """fir_decim_c / fir_decim_cc at the shapes that took the "planes" route
+    until decimation 1 and oversized windows had complex launches of their
+    own (decimation 1, and a window no decimating plan fits), with (G, K)
+    taps where G does not divide the channels: one launch of the route
+    _route names, channel c on set c % G for both planes, as the planes
+    path (forced) gives it, numpy taps alike."""
     cplx = cf.CCF if sig == "ccf" else cf.CCC
-    assert cf._route(precision, d, k, c, n, cplx=cplx) == "planes"
+    route = cf._route(precision, d, k, c, n, cplx=cplx)
+    name = {"decim_mma": "fir_decim_mma_fwd", "decim_fma": "fir_decim_fwd",
+            "tile": "fir_tile_fwd"}[route]
     x = crandn(dev, c, n * d + k - 1, seed=k + c)
     ts = complex_taps(dev, cplx, g, k, seed=k + g)
     fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
     before = dict(cf.launches)
     got = fn(x, ts, d, precision=precision)
     torch.cuda.synchronize()
-    assert sum(cf.launches[nm] - before[nm] for nm in cf.launches) == (
-        1 if cplx == cf.CCF else 2)
+    assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+            if cf.launches[nm] != before[nm]} == {name: 1}
     assert got.dtype == torch.complex64 and got.shape == (c, n)
+    forced = cf._decim_complex(x, ts, d, precision, cplx,
+                               _force_planes=True)
+    assert rel(got, forced) < TOL[precision]
     ref = cf.fir_decim_cplx_ref(x, ts, d, 0, n, precision, cplx)
     assert rel(got, ref) < TOL[precision]
     assert rel(got, plane_path(x, ts, d, 0, n, precision, cplx)) < \
@@ -557,9 +617,35 @@ def test_complex_wrappers_planes_tapsets(dev, sig, precision, k, d, c, g, n):
     assert torch.equal(fn(x, ts.cpu().numpy(), d, precision=precision), got)
 
 
+@pytest.mark.parametrize("sig", ["ccf", "ccc"])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+def test_complex_long_taps_take_the_planes(dev, sig, precision):
+    """At decimation 1 the bf16 modes' long filters take the stacked planes
+    on fir_toeplitz_fwd, which measured faster there (one launch a tap
+    plane), with G not dividing the channels; the one-launch tensor-core
+    route gives the same outputs."""
+    cplx = cf.CCF if sig == "ccf" else cf.CCC
+    k, c, g, n = cf._D1_PLANES_TAPS[cplx], 3, 2, 3000
+    assert cf._route(precision, 1, k, c, n, cplx=cplx) == "planes"
+    x = crandn(dev, c, n + k - 1, seed=k)
+    ts = complex_taps(dev, cplx, g, k, seed=k + 1)
+    fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+    before = dict(cf.launches)
+    got = fn(x, ts, 1, precision=precision)
+    torch.cuda.synchronize()
+    assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+            if cf.launches[nm] != before[nm]} == {
+                "fir_toeplitz_fwd": 1 if cplx == cf.CCF else 2}
+    ref = cf.fir_decim_cplx_ref(x, ts, 1, 0, n, precision, cplx)
+    assert rel(got, ref) < TOL[precision]
+    assert rel(mma_route(x, ts, 1, 0, n, precision, cplx), ref) < \
+        TOL[precision]
+
+
 def test_complex_modes_refuse_a_bf16_stream(dev):
-    """The C entries refuse a complex mode on a bf16 stream, and a mode
-    they do not know, instead of computing something else."""
+    """The C entries (fir_tile_fwd's too) refuse a complex mode on a bf16
+    stream, and a mode they do not know, instead of computing something
+    else."""
     from grtpu_torch.ops._build import library
 
     lib = library()
@@ -574,16 +660,24 @@ def test_complex_modes_refuse_a_bf16_stream(dev):
         assert lib.fir_decim_mma_fwd(x.data_ptr(), 1, t.data_ptr(),
                                      y.data_ptr(), 1, 100, 1, 9, 4, 0, 20, 1,
                                      1, 8, 1, cplx, stream) != 0
+        assert lib.fir_tile_fwd(x.data_ptr(), 1, t.data_ptr(), y.data_ptr(),
+                                1, 100, 1, 9, 1, 0, 20, 1, 32, 9, cplx,
+                                stream) != 0
     for cplx in (3, -1):
         assert lib.fir_decim_fwd(y.data_ptr(), 0, t.data_ptr(), y.data_ptr(),
                                  1, 20, 1, 9, 4, 0, 2, 0, 4, 1, cplx,
                                  stream) != 0
+        assert lib.fir_tile_fwd(y.data_ptr(), 0, t.data_ptr(), y.data_ptr(),
+                                1, 20, 1, 9, 1, 0, 12, 0, 32, 9, cplx,
+                                stream) != 0
 
 
-def test_firfilter_ccc_graph(dev):
-    """FirFilter("ccc", impl="kernel") in a graph: one fir_decim_* launch a
-    chunk in both run modes, device_loop torch.equal to eager, and within
-    bf16x3's tolerance of impl="mxu"."""
+@pytest.mark.parametrize("decim", [8, 1])
+def test_firfilter_ccc_graph(dev, decim):
+    """FirFilter("ccc", impl="kernel") in a graph, decimating and at
+    decimation 1: one fir_decim_mma_fwd launch a chunk in both run modes,
+    device_loop torch.equal to eager, and within bf16x3's tolerance of
+    impl="mxu"."""
     from grtpu_torch import Graph, StreamExecutor
     from grtpu_torch.runtime.block import Port
     from grtpu_torch.blocks.filter import FirFilter
@@ -598,7 +692,7 @@ def test_firfilter_ccc_graph(dev):
         g = Graph()
         pin = g.add_input(Port(torch.complex64))
         pout = g.add_output(Port(torch.complex64))
-        g.connect(pin, FirFilter(8, taps, "ccc", impl=impl), pout)
+        g.connect(pin, FirFilter(decim, taps, "ccc", impl=impl), pout)
         ex = StreamExecutor(g, chunk_size=chunk, device=dev)
         for name in cf.launches:
             cf.launches[name] = 0
