@@ -512,7 +512,7 @@ def two_modes(torch, label, build, inputs, items, unit="Msamples/s",
           f"{rate['device_loop']:.2f} {unit} ({runs} runs each, rates of the "
           f"last; the first device_loop run took {secs['device_loop'][0]:.3f} "
           f"s, capturing {len(loop.graphs())} graphs "
-          f"{loop.capture_seconds:.3f} s); device_loop torch.equal to eager: "
+          f"{loop.stats['capture_s']:.3f} s); device_loop torch.equal to eager: "
           f"{same}", flush=True)
     if not same:
         fail(f"{label}: the device_loop output differs from the eager output")
@@ -2295,7 +2295,7 @@ def run_packets_and_tags(torch):
               f"CorrelateAccessCodeTag)", flush=True)
     loop = res["device_loop"][0]._device_loop
     print(f"packets + tags device_loop: {len(loop.graphs())} graphs captured "
-          f"in {loop.capture_seconds:.3f} s; "
+          f"in {loop.stats['capture_s']:.3f} s; "
           f"{graph_sizes(torch, res['device_loop'][0])}", flush=True)
     same = (torch.equal(res["eager"][1], res["device_loop"][1])
             and torch.equal(res["eager"][1].cpu(), y_cpu))
@@ -2613,7 +2613,7 @@ def run_ofdm_packets(torch):
     print(f"OfdmPacketModem receive, {len(x)} samples: eager "
           f"{rate['eager']:.2f} Msamples/s, device_loop "
           f"{rate['device_loop']:.2f} Msamples/s ({len(loop.graphs())} graphs "
-          f"captured in {loop.capture_seconds:.3f} s; {graph_sizes(torch, ex)})",
+          f"captured in {loop.stats['capture_s']:.3f} s; {graph_sizes(torch, ex)})",
           flush=True)
     res = got["eager"]
     good = [i for i, (ok, m) in enumerate(res) if ok and m == payloads[i]]

@@ -67,9 +67,10 @@ grtpu's examples):
                            grtpu_torch.examples.<name>)
     grtpu_torch.utils   -- firdes and optfir tap design, the Parks-McClellan
                            engine, engineering notation, the default
-                           device, test helpers, the idle-share profiler,
-                           tracing and block timing, preferences, the plot
-                           and filter-design CLIs, the module scaffold
+                           device, test helpers, tracing (profiles, the
+                           executor's spans) and block timing, preferences,
+                           the plot and filter-design CLIs, the module
+                           scaffold
 """
 
 __version__ = "0.1.0"

@@ -36,12 +36,26 @@ records of all chunks once the run has ended.
 
 Launches of the hand kernels (``grtpu_torch.ops.cuda_fir.launches``) made
 inside a capture are recorded with the graph and counted at every replay.
+
+What a run costs.  Each executor's loop keeps counters on the host clock
+(``StreamExecutor.loop_stats``): chunks, piece calls, replays and the host
+time in them, the pushes' host reads and the time blocked in them,
+captures and their time.  While a piece is captured, the graph's kernel,
+memcpy and memset nodes are counted before and after each block's
+``apply`` (``StreamExecutor.loop_node_map``), so that a profiler's device
+events of one replay can be put down, in order, to the block or to the
+executor that issued them.  Under a profiler the loop opens
+``grtpu_torch.utils.trace.span`` ranges: ``grtpu.load`` / ``grtpu.unload``,
+``grtpu.copy_in``, ``grtpu.piece:<segment>.<range>`` around each call or
+replay, ``grtpu.push_read:<block>``, ``grtpu.outputs`` and
+``grtpu.capture:<segment>.<range>``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -49,6 +63,15 @@ import torch
 from grtpu_torch.runtime.executor import _edge_key, _leaves, _rebuild
 from grtpu_torch.runtime.graph import Pad
 from grtpu_torch.runtime.step_graph import StepGraph
+from grtpu_torch.utils.trace import span
+
+_STATS = ("chunks", "piece_calls", "replays", "replay_s", "push_reads",
+          "push_wait_s", "captures", "capture_s")
+
+
+def new_stats() -> Dict[str, float]:
+    """The loop's counters, all 0 (the ``_s`` ones host seconds)."""
+    return {k: 0.0 if k.endswith("_s") else 0 for k in _STATS}
 
 
 def _clone_tree(tree):
@@ -108,6 +131,63 @@ def _capture_invalidated() -> bool:
     return err == 0 and status.value == 2     # cudaStreamCaptureStatusInvalidated
 
 
+@functools.lru_cache(maxsize=None)
+def _graph_fns():
+    """The CUDA driver's capture-info, graph-nodes and node-type calls (the
+    versioned ``_v2`` capture info: every driver since CUDA 11.3 has it)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    info = lib.cuStreamGetCaptureInfo_v2
+    info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_uint64),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_size_t)]
+    info.restype = ctypes.c_int
+    nodes = lib.cuGraphGetNodes
+    nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_size_t)]
+    nodes.restype = ctypes.c_int
+    kind = lib.cuGraphNodeGetType
+    kind.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    kind.restype = ctypes.c_int
+    return info, nodes, kind
+
+
+# CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET: the nodes whose work the
+# profiler reports as a device event
+_WORK_NODES = (0, 1, 2)
+
+
+class _NodeCount:
+    """The kernel, memcpy and memset nodes of the graph being captured on
+    the current stream, counted as they are added."""
+
+    def __init__(self):
+        self.seen = set()
+        self.count = 0
+
+    def __call__(self) -> int:
+        info, get_nodes, get_kind = _graph_fns()
+        status, graph = ctypes.c_int(0), ctypes.c_void_p()
+        err = info(torch.cuda.current_stream().cuda_stream,
+                   ctypes.byref(status), None, ctypes.byref(graph), None,
+                   None)
+        if err or status.value != 1 or not graph.value:   # not capturing
+            return self.count
+        n = ctypes.c_size_t(0)
+        get_nodes(graph, None, ctypes.byref(n))
+        handles = (ctypes.c_void_p * n.value)()
+        if n.value and get_nodes(graph, handles, ctypes.byref(n)) == 0:
+            kind = ctypes.c_int(0)
+            for h in handles[:n.value]:
+                if h not in self.seen:
+                    self.seen.add(h)
+                    if (get_kind(h, ctypes.byref(kind)) == 0
+                            and kind.value in _WORK_NODES):
+                        self.count += 1
+        return self.count
+
+
 class DeviceLoop:
     """The static buffers and the captured pieces of one executor's step."""
 
@@ -161,7 +241,18 @@ class DeviceLoop:
         self.pieces: Dict[tuple, StepGraph] = {}
         self.current = None          # the block a piece is applying
         self.failure = None          # the first error raised inside a piece
-        self.capture_seconds = 0.0   # host time spent capturing the graphs
+        self.stats = new_stats()
+        # each piece's name ("top.0", "<variable-rate block>.0", ...)
+        self.labels = {(okey, ri): ("top" if okey is None
+                                    else self._vr[okey].name) + f".{ri}"
+                       for okey, ri in self.exports}
+        self._piece_spans = {k: "grtpu.piece:" + v
+                             for k, v in self.labels.items()}
+        self._push_spans = {v.name: "grtpu.push_read:" + v.name
+                            for v in ex.vr_blocks}
+        self.nodes: Dict[str, list] = {}   # (owner, nodes) runs, by piece
+        self._counter = None         # the capture's node count, while on
+        self._runs: list = []
 
     def graphs(self) -> Dict[tuple, "torch.cuda.CUDAGraph"]:
         """The captured graphs, by (segment, range): the segment None is
@@ -199,26 +290,28 @@ class DeviceLoop:
         per-chunk step.  A state whose layout differs from the buffers'
         (possible only before the first run) re-allocates them and drops
         every captured piece."""
-        fresh = False
-        for store, part in ((self.blocks, state["blocks"]),
-                            (self.tails, state["tails"])):
-            for k, tree in part.items():
-                if k in store and _same_layout(store[k], tree):
-                    _commit(list(zip(self._leaf_list(store[k]),
-                                     self._leaf_list(tree))))
+        with span("grtpu.load"):
+            fresh = False
+            for store, part in ((self.blocks, state["blocks"]),
+                                (self.tails, state["tails"])):
+                for k, tree in part.items():
+                    if k in store and _same_layout(store[k], tree):
+                        _commit(list(zip(self._leaf_list(store[k]),
+                                         self._leaf_list(tree))))
+                    else:
+                        store[k] = _clone_tree(tree)
+                        fresh = True
+            for name, (bufs, fill) in state["fifo"].items():
+                if name in self.fifo and _same_layout(self.fifo[name], bufs):
+                    _commit(list(zip(self.fifo[name], bufs)))
                 else:
-                    store[k] = _clone_tree(tree)
+                    self.fifo[name] = _clone_tree(tuple(bufs))
                     fresh = True
-        for name, (bufs, fill) in state["fifo"].items():
-            if name in self.fifo and _same_layout(self.fifo[name], bufs):
-                _commit(list(zip(self.fifo[name], bufs)))
-            else:
-                self.fifo[name] = _clone_tree(tuple(bufs))
-                fresh = True
-            self.fill[name] = int(fill)
-            self.fill_dev[name].fill_(self.fill[name])
-        if fresh:
-            self.pieces = {}
+                self.fill[name] = int(fill)
+                self.fill_dev[name].fill_(self.fill[name])
+            if fresh:
+                self.pieces = {}
+                self.nodes = {}
         return self.step
 
     @staticmethod
@@ -227,27 +320,33 @@ class DeviceLoop:
 
     def unload(self):
         """The executor state, as fresh tensors."""
-        return {"blocks": {k: _clone_tree(v) for k, v in self.blocks.items()},
-                "tails": {k: v.clone() for k, v in self.tails.items()},
-                "fifo": {name: (_clone_tree(bufs),
-                                torch.tensor(self.fill[name], dtype=torch.int32))
-                         for name, bufs in self.fifo.items()}}
+        with span("grtpu.unload"):
+            return {"blocks": {k: _clone_tree(v)
+                               for k, v in self.blocks.items()},
+                    "tails": {k: v.clone() for k, v in self.tails.items()},
+                    "fifo": {name: (_clone_tree(bufs),
+                                    torch.tensor(self.fill[name],
+                                                 dtype=torch.int32))
+                             for name, bufs in self.fifo.items()}}
 
     # ------------------------------------------------------------ step
     def step(self, *chunk):
         """One time-block: ``(pads, caps)`` as ``StreamExecutor.step``
         returns them, each a fresh tensor."""
-        if self.inputs is None:
-            self.inputs = tuple(torch.empty_like(x) for x in chunk)
-        for buf, x in zip(self.inputs, chunk):
-            buf.copy_(x)
+        self.stats["chunks"] += 1
+        with span("grtpu.copy_in"):
+            if self.inputs is None:
+                self.inputs = tuple(torch.empty_like(x) for x in chunk)
+            for buf, x in zip(self.inputs, chunk):
+                buf.copy_(x)
         counts = {v.name: 0 for v in self.ex.vr_blocks}
         if self.cuda:
             with torch.cuda.device(self.device):
                 self._drive(None, counts)
         else:
             self._drive(None, counts)
-        return self._outputs(counts)
+        with span("grtpu.outputs"):
+            return self._outputs(counts)
 
     def _drive(self, okey, counts):
         ex = self.ex
@@ -256,7 +355,12 @@ class DeviceLoop:
             if push is None:
                 continue
             name, n_emit = push.name, ex.vr_emit[push.uid]
-            self.fill[name] += int(self.nvalid[name])   # the push's one read
+            t0 = time.perf_counter_ns()
+            with span(self._push_spans[name]):
+                n_valid = int(self.nvalid[name])        # the push's one read
+            self.stats["push_wait_s"] += (time.perf_counter_ns() - t0) * 1e-9
+            self.stats["push_reads"] += 1
+            self.fill[name] += n_valid
             while self.fill[name] >= n_emit:
                 if counts[name] >= ex.vr_total_rows[push.uid]:
                     raise ValueError(f"{name}: more emissions in one step than "
@@ -294,13 +398,24 @@ class DeviceLoop:
             # the piece's argument: whether this is its first call
             p.step = lambda: fn(p.calls == 0)
         if p.cuda and p.calls and p.graph is None:
-            self._capture(p)
-        p()
+            self._capture(p, key)
+        st = self.stats
+        st["piece_calls"] += 1
+        with span(self._piece_spans[key]):
+            if p.graph is None:
+                p()
+            else:
+                t0 = time.perf_counter_ns()
+                p()
+                st["replay_s"] += (time.perf_counter_ns() - t0) * 1e-9
+                st["replays"] += 1
 
-    def _capture(self, p):
+    def _capture(self, p, key):
         self.current = self.failure = None
+        self._counter, self._runs = _NodeCount(), []
         try:
-            p.capture()
+            with span("grtpu.capture:" + self.labels[key]):
+                p.capture()
         except Exception as err:
             first = self.failure or err
             where = ("" if self.current is None
@@ -311,7 +426,22 @@ class DeviceLoop:
                 f"cannot read the card from the host (.item(), int(tensor), "
                 f"a shape that depends on data) or copy host memory to it; "
                 f"run this graph without device_loop") from err
-        self.capture_seconds += p.capture_seconds
+        finally:
+            self._counter = None
+        self.nodes[self.labels[key]] = self._runs
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += p.capture_seconds
+
+    def _mark(self, owner):
+        """Put the nodes captured since the last mark down to ``owner``."""
+        done = sum(n for _, n in self._runs)
+        new = self._counter() - done
+        if new <= 0:
+            return
+        if self._runs and self._runs[-1][0] == owner:
+            self._runs[-1] = (owner, self._runs[-1][1] + new)
+        else:
+            self._runs.append((owner, new))
 
     def _piece(self, okey, ri):
         """The function of range ``ri`` of segment ``okey``: reads and
@@ -338,6 +468,7 @@ class DeviceLoop:
 
         def fn(settle: bool):
             capturing = self.cuda and not settle
+            mark = self._mark if capturing else None
             pairs = []
             ctx = {"blocks": dict(self.blocks), "tails": dict(self.tails)}
             edge_vals = dict(self.edges)
@@ -358,7 +489,7 @@ class DeviceLoop:
                 for b in blocks:
                     self.current = b
                     ins, outs, rec = ex._apply_block(b, ctx, edge_vals,
-                                                     self.inputs)
+                                                     self.inputs, mark)
                     if capturing and _capture_invalidated():
                         raise RuntimeError(
                             "an operation the capture cannot hold ran here "
@@ -405,6 +536,8 @@ class DeviceLoop:
             for k in exports:
                 pairs += self._settle(self.edges, k, edge_vals[k], settle, k)
             _commit(pairs)
+            if mark is not None:
+                mark("executor")
 
         return fn
 

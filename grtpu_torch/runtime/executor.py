@@ -57,6 +57,7 @@ from grtpu_torch.runtime.block import Block
 from grtpu_torch.runtime.graph import Edge, FlatGraph, Graph, Pad
 from grtpu_torch.runtime.tags import Tag, propagate_tags
 from grtpu_torch.utils.device import resolve
+from grtpu_torch.utils.trace import span
 
 
 def _edge_key(e: Edge) -> str:
@@ -495,10 +496,13 @@ class StreamExecutor:
         return (b.emits_tags and b.device_tags
                 and self.block_owner[b.uid] is None)
 
-    def _apply_block(self, b: Block, ctx, edge_vals, ext_inputs):
+    def _apply_block(self, b: Block, ctx, edge_vals, ext_inputs, mark=None):
         """Gather b's inputs (each with its halo tail prepended, the tail
         advanced in ``ctx``), apply b and keep its new state in ``ctx``.
-        Returns (inputs, raw apply outputs, tag record or None)."""
+        Returns (inputs, raw apply outputs, tag record or None).  ``mark``,
+        where given, is called with the owner of the work issued since its
+        last call: ``"executor"`` before ``b.apply`` and b's name after it
+        (``device_loop`` counts a capture's nodes by block with it)."""
         ups = self._ups[b.uid]
         ins = []
         for i in range(len(b.in_ports)):
@@ -513,21 +517,26 @@ class StreamExecutor:
                 v = full
             ins.append(v)
         uid = str(b.uid)
-        if not b.in_ports:
-            n_out = self.block_nin[b.uid] // b.decim * b.interp
-            if b.source_takes_device:
-                new_s, outs = b.apply(ctx["blocks"][uid], n_out,
-                                      device=self.device)
+        rec = None
+        if mark is not None:
+            mark("executor")
+        with span(f"grtpu.block:{b.name}"):
+            if not b.in_ports:
+                n_out = self.block_nin[b.uid] // b.decim * b.interp
+                if b.source_takes_device:
+                    new_s, outs = b.apply(ctx["blocks"][uid], n_out,
+                                          device=self.device)
+                else:
+                    new_s, outs = b.apply(ctx["blocks"][uid], n_out)
+            elif self._tags_on_device(b):
+                new_s, outs, rec = b.apply_tagged(ctx["blocks"][uid], *ins)
+                rec = dict(rec)
             else:
-                new_s, outs = b.apply(ctx["blocks"][uid], n_out)
-        elif self._tags_on_device(b):
-            new_s, outs, rec = b.apply_tagged(ctx["blocks"][uid], *ins)
-            ctx["blocks"][uid] = new_s
-            return ins, outs, dict(rec)
-        else:
-            new_s, outs = b.apply(ctx["blocks"][uid], *ins)
+                new_s, outs = b.apply(ctx["blocks"][uid], *ins)
+        if mark is not None:
+            mark(b.name)
         ctx["blocks"][uid] = new_s
-        return ins, outs, None
+        return ins, outs, rec
 
     @staticmethod
     def _fixed_outputs(b: Block, outs) -> tuple:
@@ -605,7 +614,8 @@ class StreamExecutor:
                 f"than max_out_for gives ({self.vr_maxout[v.uid]})")
         bufs = tuple(torch.cat([buf[:fill], y.to(buf.dtype), buf[fill + n_pad:]])
                      for buf, y in zip(bufs, ys))
-        fill += int(n_valid)  # the push's one device -> host read
+        with span(f"grtpu.push_read:{v.name}"):
+            fill += int(n_valid)  # the push's one device -> host read
         down = self._downs[v.uid]
         while fill >= n_emit:
             xs = tuple(buf[:n_emit] for buf in bufs)
@@ -711,50 +721,79 @@ class StreamExecutor:
         entry.  It cannot carry ``debug_taps``.  Each chunk's tag records
         stay on the device until the run has ended; the tag plan is then
         replayed chunk by chunk, as ``step`` would have advanced it."""
-        n_pads = len(self.flat.in_pads)
-        if len(ext_inputs) != n_pads:
-            raise ValueError(f"graph has {n_pads} input pads, got {len(ext_inputs)}")
-        if n_pads == 0 and steps is None:
-            raise ValueError("source-driven graph needs steps=")
-        if device_loop:
-            self._check_versions()
-            if self.debug_taps:
-                raise ValueError("device_loop does not support debug_taps")
-            if self._device_loop is None:
-                from grtpu_torch.runtime.device_loop import DeviceLoop
-
-                self._device_loop = DeviceLoop(self)
-            step = self._device_loop.load(self.state)
-        else:
-            step = self.step
-        outs_accum: List[List[torch.Tensor]] = [[] for _ in self.flat.out_pads]
-        sink_accum: Dict[str, List[tuple]] = {}
-        counts_accum: List[Dict[str, int]] = []
-        n = None
-        if n_pads == 0:
-            chunks = [()] * steps
-        else:
-            xs = [self._ingest(x, pad)
-                  for x, pad in zip(ext_inputs, self.flat.in_pads)]
-            n = xs[0].shape[0]
-            cs = self.chunk_size
-            nchunks = -(-n // cs)
-            pad_to = nchunks * cs
-            if pad_to != n:
-                xs = [torch.cat([x, x.new_zeros((pad_to - n,) + x.shape[1:])])
-                      for x in xs]
-            chunks = (tuple(x[c * cs:(c + 1) * cs] for x in xs)
-                      for c in range(nchunks))
-        tag_caps = []
-        for chunk in chunks:
-            pads, caps = step(*chunk)
+        with span("grtpu.run"):
+            n_pads = len(self.flat.in_pads)
+            if len(ext_inputs) != n_pads:
+                raise ValueError(f"graph has {n_pads} input pads, "
+                                 f"got {len(ext_inputs)}")
+            if n_pads == 0 and steps is None:
+                raise ValueError("source-driven graph needs steps=")
             if device_loop:
-                tag_caps.append(self._pop_tag_caps(caps))
-            self._collect(pads, caps, outs_accum, sink_accum, counts_accum)
-        if device_loop:
-            self.state = self._device_loop.unload()
-            self._replay_tags(tag_caps)
-        return self._finalize(outs_accum, sink_accum, n, counts_accum)
+                self._check_versions()
+                if self.debug_taps:
+                    raise ValueError("device_loop does not support debug_taps")
+                if self._device_loop is None:
+                    from grtpu_torch.runtime.device_loop import DeviceLoop
+
+                    self._device_loop = DeviceLoop(self)
+                step = self._device_loop.load(self.state)
+            else:
+                step = self.step
+            outs_accum: List[List[torch.Tensor]] = [
+                [] for _ in self.flat.out_pads]
+            sink_accum: Dict[str, List[tuple]] = {}
+            counts_accum: List[Dict[str, int]] = []
+            n = None
+            if n_pads == 0:
+                chunks = [()] * steps
+            else:
+                xs = [self._ingest(x, pad)
+                      for x, pad in zip(ext_inputs, self.flat.in_pads)]
+                n = xs[0].shape[0]
+                cs = self.chunk_size
+                nchunks = -(-n // cs)
+                pad_to = nchunks * cs
+                if pad_to != n:
+                    xs = [torch.cat([x, x.new_zeros((pad_to - n,)
+                                                    + x.shape[1:])])
+                          for x in xs]
+                chunks = (tuple(x[c * cs:(c + 1) * cs] for x in xs)
+                          for c in range(nchunks))
+            tag_caps = []
+            for chunk in chunks:
+                pads, caps = step(*chunk)
+                if device_loop:
+                    tag_caps.append(self._pop_tag_caps(caps))
+                self._collect(pads, caps, outs_accum, sink_accum, counts_accum)
+            if device_loop:
+                self.state = self._device_loop.unload()
+                self._replay_tags(tag_caps)
+            with span("grtpu.finalize"):
+                return self._finalize(outs_accum, sink_accum, n, counts_accum)
+
+    def loop_stats(self) -> Dict[str, float]:
+        """A copy of ``run(device_loop=True)``'s counters, summed over every
+        such run of this executor (all 0 before the first): ``chunks``,
+        ``piece_calls``, ``replays`` and ``replay_s`` (host seconds in the
+        replay calls), ``push_reads`` and ``push_wait_s`` (host seconds
+        blocked in the read of a variable-rate push's count), ``captures``
+        and ``capture_s`` (host seconds capturing the pieces)."""
+        from grtpu_torch.runtime.device_loop import new_stats
+
+        loop = self._device_loop
+        return dict(loop.stats) if loop is not None else new_stats()
+
+    def loop_node_map(self) -> Dict[str, List[tuple]]:
+        """Which block issued each node of ``device_loop``'s captured
+        graphs: for each captured piece (``top.0``, ``<variable-rate block
+        name>.0``, ...), the kernel, memcpy and memset nodes in the order
+        they were captured, as (owner, nodes) runs.  The owner is a block's
+        name, or ``"executor"`` for nodes issued outside every ``apply``
+        (history concatenation, FIFO shift and push, emission rows,
+        commits).  Empty before the first capture and on the CPU."""
+        loop = self._device_loop
+        return {} if loop is None else {k: list(v)
+                                        for k, v in loop.nodes.items()}
 
     def stream(self, chunk_iter):
         """Generator-driven streaming: pull fixed-size chunks from an

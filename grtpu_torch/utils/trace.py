@@ -12,7 +12,10 @@ Port of ``grtpu.utils.trace``.  The reference's pieces:
   median of rounds), ``perf_counter`` on the CPU.
 * gruel::high_res_timer -> :func:`high_res_timer_now` (monotonic ns).
 * the profiler the reference never had -> :func:`profile` over
-  ``torch.profiler``, writing a Chrome trace (chrome://tracing, Perfetto).
+  ``torch.profiler``, writing a Chrome trace (chrome://tracing, Perfetto),
+  and :func:`span`, the program's own ranges on the profiler's clock
+  (``grtpu.`` names: the executor's run, a ``device_loop`` piece's call or
+  replay, a variable-rate push's host read, a block's ``apply``).
 * race-detector stand-in (§5.2: the functional model removes data races;
   keep invariant checks instead) -> :func:`validate_state` checking that
   the state tree keeps its structure/shape/dtype across steps and holds no
@@ -29,7 +32,20 @@ from typing import Dict, List, Optional, TextIO
 import numpy as np
 import torch
 
-from grtpu_torch.runtime.executor import _AttrKey, _leaves, _tree_to
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a ``torch.profiler`` runs in
+    this process, else one shared no-op context, so that the executor can
+    open spans on its hot path (with no profiler a span costs the check and
+    an empty ``with``, under a microsecond).  The range is a function
+    range, not a user annotation, so the profiler mirrors none of them
+    onto the device's timeline: device time there is the card's work
+    alone."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def high_res_timer_now() -> int:
@@ -44,8 +60,9 @@ def profile(logdir: str):
 
     Records the host and, where CUDA is available, the card; at exit writes
     ``logdir/trace_<pid>.json``, a Chrome trace of everything run inside
-    the context.  Yields the ``torch.profiler.profile`` object
-    (``key_averages()`` for sums by op and kernel)."""
+    the context, the program's :func:`span` ranges among it.  Yields the
+    ``torch.profiler.profile`` object (``key_averages()`` for sums by op
+    and kernel)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -140,6 +157,8 @@ def block_timings(executor, iters: int = 4) -> Dict[str, float]:
     warm-up.  Identifies which stage bounds a flowgraph (the
     benchmark_dotprod / benchmark_filters analog).  A block whose ``apply``
     cannot run alone on such inputs reads NaN."""
+    from grtpu_torch.runtime.executor import _tree_to
+
     dev = executor.device
     res: Dict[str, float] = {}
     for b in executor.order:
@@ -168,6 +187,8 @@ def block_timings(executor, iters: int = 4) -> Dict[str, float]:
 # --------------------------------------------------------- invariant check
 
 def _keystr(path) -> str:
+    from grtpu_torch.runtime.executor import _AttrKey
+
     return "".join(f".{p}" if isinstance(p, _AttrKey) else f"[{p!r}]"
                    for p in path)
 
@@ -178,6 +199,8 @@ def validate_state(executor, reference_state=None) -> List[str]:
     tensor's shape and dtype (against ``reference_state`` where given), and
     hold no NaN/Inf (real and imaginary parts counted apart).  Returns a
     list of violation strings (empty = clean)."""
+    from grtpu_torch.runtime.executor import _leaves
+
     problems: List[str] = []
     leaves = list(_leaves(executor.state))
     if reference_state is not None:
