@@ -8,9 +8,9 @@ Run from the repository root with no arguments:
 Phases (each raises on failure; nothing is caught):
   1. Require a CUDA device, print its name and power limit, pin float32
      matmuls and convolutions to full precision (no TF32).
-  2. Build the Hopper kernels from grtpu_torch/csrc (the FIR kernels and the
-     two recursion kernels: one nvcc per source, five started together,
-     sm_90a).
+  2. Build the Hopper kernels from grtpu_torch/csrc (the FIR kernels, the
+     two recursion kernels and the first-order IIR: one nvcc per source,
+     six started together, sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
      Each case prints its bound (the larger of useful FLOP over the peak its
@@ -37,6 +37,17 @@ Phases (each raises on failure; nothing is caught):
      against the same twin; each prints its kernel, launches a call, error,
      bound, share and conv1d, and its time in turns with the stacked-planes
      path it replaces (forced), with the card's name and power limit.
+     The first-order IIR's iir1_fwd (3b) at phase 4's chunk and at the
+     benchmark's (FmDeemph's IirFilter at 32 kS/s, 1 x 8,192 and 1 x
+     65,536, nff 2, K 49, through dsp.iir_filter) and at a bank (64 x 2^18,
+     the same taps): one launch a call, within float32 rounding of its
+     plain form (on the CPU for the chunks, on the card for the bank), both
+     timed back to back and replayed from a CUDA graph, beside the bound
+     (bytes).  From here on, the first two calls of iir1_fwd at each shape
+     outside a CUDA-graph capture (the de-emphasis of every WBFM path
+     below, at that path's shape) are held to the plain form on the CPU
+     too (hold_iir1); the run ends by listing the shapes held, and phase
+     4's must be among them.
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
@@ -210,8 +221,9 @@ Phases (each raises on failure; nothing is caught):
         524,288, 16 steps) run as users run it, ``python -m grtpu_torch.grc
         run spec.json`` in a subprocess on the default device, then
         in-process (FlowgraphSpec.build + StreamExecutor) eagerly and under
-        run(device_loop=True), each twice.  Gates: fir_decim_mma_fwd
-        launched 16 times a run and nothing else, in all three; the modes
+        run(device_loop=True), each twice.  Gates: fir_decim_mma_fwd and
+        the de-emphasis' iir1_fwd launched 16 times a run each and nothing
+        else, in all three; the modes
         torch.equal; the WAV's audio SNR > 30 dB and its int16 samples
         within 1 LSB of save_wav applied to phase 6a's audio.  Prints
         Msamples/s of input: the command line's wall, with its process
@@ -220,8 +232,8 @@ Phases (each raises on failure; nothing is caught):
      b. the same chain as a GRC 3.5 .grc file written here (variables in
         any order, the taps as a firdes.low_pass expression, a virtual
         sink/source pair, a disabled block) through run_grc on the card:
-        within 1e-5 of phase 6a's impl="mxu" audio, 0 kernel launches (the
-        adapters take impl auto);
+        within 1e-5 of phase 6a's impl="mxu" audio, no FIR kernel launched
+        (the adapters take impl auto), iir1_fwd 16 times;
      c. the WBFM receiver as a service: 2^20 samples at 256 kS/s sent over
         localhost UDP (UdpSink -> UdpSource.chunks(4096) -> stream() over
         WfmRcv(impl="kernel") -> UdpSink -> UdpSource): every item in, the
@@ -242,8 +254,9 @@ Phases (each raises on failure; nothing is caught):
         and (2,2), eager and under run(device_loop=True), each run twice.
         Gates: every channel of both runs torch.equal to its own
         single-device StreamExecutor on (1,1), within atol 2e-6, rtol 1e-5
-        on (2,2); the modes torch.equal; fir_decim_mma_fwd launched once a
-        channel, time shard and chunk (256 and 512 a run) and nothing else;
+        on (2,2); the modes torch.equal; fir_decim_mma_fwd and iir1_fwd
+        launched once a channel, time shard and chunk each (256 and 512 a
+        run) and nothing else;
         the (2,2) kernel route within 1e-4 of the same mesh on mxu; channel
         0's audio SNR > 30 dB.  Prints Msamples/s of input of each mesh and
         mode (the second run), the route, the launches, and one
@@ -296,7 +309,7 @@ Phases (each raises on failure; nothing is caught):
         run(device_loop=True) and a 2-channel MeshExecutor (both modes):
         offsets [1, 4, 7] in every mode.
      Prints each example's wall s.
- 16. Print one JSON line of per-kernel results (the eight kernels) and,
+ 16. Print one JSON line of per-kernel results (the nine kernels) and,
      last, the device line.
 
 Every executor path of phases 4-11 runs twice eagerly and twice under
@@ -305,8 +318,9 @@ on the same input: the device_loop outputs must be torch.equal to the eager
 ones; both rates are printed (the second runs'), with the first device_loop
 run's time and the host time its CUDA-graph captures took.  Under
 device_loop the kernel launches are counted run by run: on the WBFM kernel
-path and the tuner path fir_decim_mma_fwd is launched once a chunk (the
-first chunk eagerly, the rest in graph replays) and nothing else.
+path and the tuner path fir_decim_mma_fwd and the de-emphasis' iir1_fwd
+are launched once a chunk each (the first chunk eagerly, the rest in graph
+replays) and nothing else.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 grtpu_torch package beside this script.
@@ -906,6 +920,172 @@ def check_kernels(torch, cf, fir, firdes, _build):
     return rows, headline
 
 
+IIR1_BANK = (64, 1 << 18)          # a bank of de-emphasis channels
+IIR1_CHUNK = MAIN_CHUNK // AUDIO_DECIM   # phase 4's de-emphasis chunk
+IIR1_HELD = 2        # calls at each shape hold_iir1 holds to the plain form
+
+
+def iir1_tol(k: int, nff: int) -> float:
+    """iir1_fwd against its plain form, on max|got - ref| / scale with scale
+    the response's bound (the feed-forward taps' sum of magnitudes times
+    the input's largest magnitude over 1 - |a|, plus |y0|): each form sums
+    K + nff float32 terms in its own order, each rounding by at most 2^-24
+    of a partial sum within that bound."""
+    return 2 * (k + nff) * 2.0 ** -24
+
+
+def run_iir1(torch, cf):
+    """Phase 3b: iir1_fwd at phase 4's chunk and the benchmark's
+    (FmDeemph's IirFilter through dsp.iir_filter, 1 x 8,192 and 1 x
+    65,536) and at a bank (64 x 2^18, the same taps, cuda_iir.iir1_fwd):
+    one launch a call, the plain form on the CPU (chunks) or on the card
+    (bank) within iir1_tol, both timed back to back and replayed from a
+    CUDA graph.  Returns the kernels line's row, at phase 4's chunk."""
+    from grtpu_torch.blocks.filter import IirFilter
+    from grtpu_torch.ops import cuda_iir, dsp
+    from grtpu_torch.ops.fir import fir_filter
+
+    fs, tau = QUAD_RATE / AUDIO_DECIM, 75e-6
+    kk = math.tan(1.0 / (tau * 2.0 * fs))           # models/fm.py FmDeemph
+    blk = IirFilter([kk / (1 + kk)] * 2, [1.0, (1 - kk) / (1 + kk)])
+    a = float(blk.fb[1])
+    k = dsp._pole_taps(a)
+    dev = torch.device("cuda")
+    ff = torch.from_numpy(blk.ff).to(dev)
+    s0, s1 = dsp.pole_series(a, k, dev)
+    rng = np.random.RandomState(21)
+    smi = gpu_line()
+    row = None
+    for label, rows, n in ((f"1x{IIR1_CHUNK}", 1, IIR1_CHUNK),
+                           ("1x65536", 1, 65536),
+                           (f"{IIR1_BANK[0]}x2^18", *IIR1_BANK)):
+        x = torch.from_numpy(rng.randn(rows, n).astype(np.float32)).to(dev)
+        hist = torch.from_numpy(rng.randn(rows, 1).astype(np.float32)).to(dev)
+        y0 = torch.from_numpy(rng.randn(rows).astype(np.float32)).to(dev)
+        if rows == 1:
+            x, hist, y0 = x[0], hist[0], y0[:1]
+
+            def run():
+                return dsp.iir_filter(x, (hist, y0), ff, blk.fb)[0]
+        else:
+            def run():
+                return cuda_iir.iir1_fwd(x, hist, ff, s0, s1, y0)[0]
+
+        def plain(x=x, hist=hist, y0=y0):
+            v = fir_filter(torch.cat([hist, x], dim=-1), ff, 1)
+            return dsp.truncated_plain(a, k, v, y0 if rows > 1 else y0[0])
+
+        before = dict(cf.launches)
+        got = run()
+        launched = {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+                    if cf.launches[nm] != before[nm]}
+        if launched != {"iir1_fwd": 1}:
+            fail(f"iir1 {label}: one call launched {launched}")
+        if rows == 1:
+            ref = plain(x.cpu(), hist.cpu(), y0.cpu()).to(dev)
+            twin = "CPU"
+        else:
+            ref = plain()
+            twin = "card"
+        torch.cuda.synchronize()
+        scale = (float(ff.abs().sum()) * float(x.abs().max()) / (1 - abs(a))
+                 + float(y0.abs().max()))
+        abs_err, rel_err = errors(got, ref)
+        tol = iir1_tol(k, 2)
+        ms = launch_ms(run)
+        g_ms = graph_ms(run, 20)
+        plain_ms = launch_ms(plain, reps=5, rounds=3)
+        g_plain = graph_ms(plain, 5)
+        nbytes = 4 * (2 * rows * n + 2 * rows + 2 * k + 2)
+        bound_ms, bound_by = bound(2 * (k + 2) * rows * n, nbytes, "f32")
+        ok = abs_err <= tol * scale
+        print(f"kernel iir1 {label} nff2 K{k} iir1_fwd f32 launches_a_call=1 "
+              f"max_abs_err={abs_err:.3e} (tol {tol * scale:.3e}, the plain "
+              f"form on the {twin}) max_rel_err={rel_err:.3e} "
+              f"kernel_ms={ms:.4f} in_a_graph kernel_ms={g_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} in_a_graph plain_ms={g_plain:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound "
+              f"(graph)={bound_ms / g_ms:.3f} {'ok' if ok else 'FAIL'}; "
+              f"{smi}", flush=True)
+        if not ok:
+            fail(f"iir1 {label}: the kernel disagrees with its plain form")
+        if n == IIR1_CHUNK:
+            row = {"name": "iir1_fwd", "route": "cuda",
+                   "source": "grtpu_torch/csrc/iir1.cu",
+                   "replaces": "grtpu/ops/dsp.py linear_recurrence_const and "
+                               "iir_filter's first-order branch (XLA ops; no "
+                               "Pallas kernel)",
+                   "launches": None, "max_abs_err": abs_err, "ms": ms,
+                   "graph_ms": g_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return row
+
+
+def hold_iir1(torch):
+    """From here on, every call of cuda_iir.iir1_fwd (which dsp's first-order
+    branches call) outside a CUDA-graph capture, up to IIR1_HELD at each
+    (shape, dtype, nff, K), is held to its plain form on the CPU: the
+    feed-forward sum as dsp.iir_filter's CPU branch makes it, then
+    dsp.truncated_plain, within iir1_tol, and the x history bit for bit.
+    So each WBFM path is checked at its own shape.  Returns the tally
+    {(shape, dtype, nff, K): calls held}."""
+    from grtpu_torch.ops import cuda_iir, dsp
+    from grtpu_torch.ops.fir import fir_filter
+
+    launch = cuda_iir.iir1_fwd
+    held = {}
+
+    def checked(x, x_hist, ff, apow, apow1, y0):
+        out = launch(x, x_hist, ff, apow, apow1, y0)
+        nff = 1 if ff is None else ff.shape[0]
+        key = (tuple(x.shape), str(x.dtype).replace("torch.", ""), nff,
+               apow.shape[0])
+        if held.get(key, 0) >= IIR1_HELD or x.shape[-1] == 0 \
+                or torch.cuda.is_current_stream_capturing():
+            return out
+        pole = [kk for kk, series in dsp._POLE_SERIES.items()
+                if series[0] is apow]
+        if not pole:
+            fail(f"iir1_fwd at {key}: its series are not dsp.pole_series'")
+        a, k = pole[0][0], pole[0][1]
+        xc = x.cpu()
+        hc = None if x_hist is None else x_hist.cpu().to(xc.dtype)
+        y0c = y0.cpu() if isinstance(y0, torch.Tensor) else y0
+        if isinstance(y0c, torch.Tensor) and y0c.numel() == 1:
+            y0c = y0c.reshape(())
+        if ff is None:
+            v = xc
+        elif nff == 1:
+            v = xc * ff.cpu()[0]
+        else:
+            v = fir_filter(torch.cat([hc, xc], dim=-1), ff.cpu(), 1)
+        ref = dsp.truncated_plain(a, k, v, y0c)
+        gain = 1.0 if ff is None else float(ff.abs().sum())
+        peak = float(xc.abs().max()) if hc is None else max(
+            float(xc.abs().max()), float(hc.abs().max()))
+        scale = (gain * peak / (1 - abs(a))
+                 + float(torch.as_tensor(y0c).abs().max()))
+        err = float((out[0].cpu() - ref).abs().max())
+        tol = iir1_tol(k, nff) * scale
+        if not err <= tol:
+            fail(f"iir1_fwd at {key}: max_abs_err {err:.3e} against its plain "
+                 f"form on the CPU (tol {tol:.3e})")
+        if nff > 1 and not torch.equal(
+                out[1].cpu(), torch.cat([hc, xc], dim=-1)[..., -(nff - 1):]):
+            fail(f"iir1_fwd at {key}: the x history is not the chunk's last "
+                 f"{nff - 1} samples")
+        held[key] = held.get(key, 0) + 1
+        if held[key] == 1:
+            print(f"iir1_fwd at {key} (shape, dtype, nff, K) held to its plain "
+                  f"form on the CPU: max_abs_err={err:.3e} (tol {tol:.3e})",
+                  flush=True)
+        return out
+
+    cuda_iir.iir1_fwd = checked
+    return held
+
+
 def wbfm_graph(torch, kernel: bool):
     from grtpu_torch import Graph
     from grtpu_torch.runtime.block import Port
@@ -1010,7 +1190,7 @@ def run_main_path(torch, cf, headline):
             fail(f"kernel {name} was not launched on the main path")
 
     # the same chain under run(device_loop=True): replayed from CUDA graphs,
-    # the kernel launched once a chunk, inside the graph
+    # the kernels launched once a chunk, inside the graph
     nchunks = MAIN_SAMPLES // MAIN_CHUNK
     for kind in ("kernel", "plain"):
         _, rates, _, loop_counts = two_modes(
@@ -1019,12 +1199,13 @@ def run_main_path(torch, cf, headline):
                                    chunk_size=MAIN_CHUNK, device="cuda"),
             (msg_dev,), MAIN_SAMPLES, cf=cf)
         rate[f"{kind} device_loop"] = rates["device_loop"]
-        want = nchunks if kind == "kernel" else 0
+        # the audio FIR on the kernel path, the de-emphasis on both
+        want = {"fir_decim_mma_fwd": nchunks} if kind == "kernel" else {}
+        want["iir1_fwd"] = nchunks
         for run in loop_counts:
-            if run["fir_decim_mma_fwd"] != want or sum(run.values()) != want:
+            if {k: v for k, v in run.items() if v} != want:
                 fail(f"WBFM ({kind}) under device_loop launched {run}; "
-                     f"expected fir_decim_mma_fwd {want} times and nothing "
-                     f"else")
+                     f"expected {want} and nothing else")
     return counts, rate
 
 
@@ -1389,12 +1570,15 @@ def run_tuner_wbfm(torch, cf):
             lambda: executor(impl, chunk)[0], (x_dev,), CAPTURE_SAMPLES,
             cf=cf)
         rate[f"{impl} {chunk} device_loop"] = rates["device_loop"]
-        want = CAPTURE_SAMPLES // chunk if impl == "kernel" else 0
+        # the audio FIR on the kernel path, the de-emphasis on both
+        want = {"fir_decim_mma_fwd": CAPTURE_SAMPLES // chunk} \
+            if impl == "kernel" else {}
+        want["iir1_fwd"] = CAPTURE_SAMPLES // chunk
         for run in loop_counts:
-            if run["fir_decim_mma_fwd"] != want or sum(run.values()) != want:
+            if {k: v for k, v in run.items() if v} != want:
                 fail(f"tuner -> WBFM ({impl}, chunk {chunk}) under "
-                     f"device_loop launched {run}; expected "
-                     f"fir_decim_mma_fwd {want} times and nothing else")
+                     f"device_loop launched {run}; expected {want} and "
+                     f"nothing else")
         if impl == "kernel" and chunk != CAPTURE_CHUNK:
             snrs[chunk] = audio_snr(outs[0].cpu().numpy())
     print(f"tuner -> WBFM recovered-audio SNR by chunk: "
@@ -3633,9 +3817,10 @@ def run_spec_file(torch, cf, tmp, config1):
           f"({CAPTURE_SAMPLES / run_s / 1e6:.2f} Msamples/s, first run of a "
           f"fresh process), WAV write {flush_s:.3f} s; launches "
           f"{cli_launches}", flush=True)
-    if cli_launches != {"fir_decim_mma_fwd": nchunks}:
+    want = {"fir_decim_mma_fwd": nchunks, "iir1_fwd": nchunks}
+    if cli_launches != want:
         fail(f"13a: the command line launched {cli_launches}; expected "
-             f"fir_decim_mma_fwd {nchunks} times and nothing else")
+             f"{want} and nothing else")
 
     pcm = wav_pcm(wav)
     save_wav(str(tmp / "phase6a.wav"), AUDIO_RATE,
@@ -3672,9 +3857,9 @@ def run_spec_file(torch, cf, tmp, config1):
         print(f"13a in-process {mode}: {CAPTURE_SAMPLES / secs / 1e6:.2f} "
               f"Msamples/s of input (second run, {secs:.3f} s); launches "
               f"{launched}", flush=True)
-        if launched != {"fir_decim_mma_fwd": nchunks}:
+        if launched != want:
             fail(f"13a in-process {mode} launched {launched}; expected "
-                 f"fir_decim_mma_fwd {nchunks} times and nothing else")
+                 f"{want} and nothing else")
     same = torch.equal(outs["eager"], outs["device_loop"])
     inproc = np.clip(np.round(outs["eager"].cpu().numpy() * 32767.0),
                      -32768, 32767).astype(np.int16)
@@ -3744,11 +3929,14 @@ def run_grc_file(torch, cf, tmp, config1):
           f"{CAPTURE_SAMPLES / secs / 1e6:.2f} Msamples/s of input with the "
           f"load (first run); audio filter impl "
           f"{byid['rcv'].audio_filter.impl}; max |audio - mxu chain| {err} "
-          f"(tol 1e-5); kernel launches {sum(launched.values())}", flush=True)
+          f"(tol 1e-5); kernel launches {launched}", flush=True)
     if err is None or not err <= 1e-5:
         fail("13b: the .grc chain disagrees with the in-memory mxu chain")
-    if sum(launched.values()):
-        fail(f"13b: the .grc path (impl auto -> mxu) launched {launched}")
+    nchunks = CAPTURE_SAMPLES // CAPTURE_CHUNK
+    if {k: v for k, v in launched.items() if v} != {"iir1_fwd": nchunks}:
+        fail(f"13b: the .grc path (impl auto -> mxu) launched {launched}; "
+             f"expected the de-emphasis' iir1_fwd {nchunks} times and no "
+             f"FIR kernel")
 
 
 def service_signal(n, seed=13):
@@ -4094,9 +4282,11 @@ def run_mesh_executor(torch, cf):
                   f"launches of the second run: {counts}", flush=True)
             want = nchan * shape[0] * nchunks
             if (counts["fir_decim_mma_fwd"] != want
-                    or sum(counts.values()) != want):
+                    or counts["iir1_fwd"] != want
+                    or sum(counts.values()) != 2 * want):
                 fail(f"14a {shape} {mode} launched {counts}; expected "
-                     f"fir_decim_mma_fwd {want} times and nothing else")
+                     f"fir_decim_mma_fwd and iir1_fwd {want} times each and "
+                     f"nothing else")
         for k in (0, 1):
             a, b = outs[(shape, "eager")][k], outs[(shape, "device_loop")][k]
             if not torch.equal(a, b):
@@ -4913,6 +5103,8 @@ def main() -> int:
 
     # phase 3: each kernel against its twin
     rows, headline = check_kernels(torch, cf, fir, firdes, _build)
+    iir1_row = run_iir1(torch, cf)
+    iir1_held = hold_iir1(torch)
 
     # phase 4: the main path
     counts, rate = run_main_path(torch, cf, headline)
@@ -5041,6 +5233,15 @@ def main() -> int:
     kernels += [rows11["viterbi_fwd"], rows11["dfe_feedback_fwd"]]
     print("reported for viterbi_fwd and dfe_feedback_fwd: the inputs of "
           "their last launch in 11d's last run")
+    kernels.append(dict(iir1_row, launches=counts["iir1_fwd"]))
+    print(f"reported for iir1_fwd: phase 4's chunk, 1 x {IIR1_CHUNK} (phase "
+          f"3b); launches: phase 4's")
+    print(f"iir1_fwd held to its plain form on the CPU outside captures "
+          f"(shape, dtype, nff, K: calls): {iir1_held}")
+    if not any(key[:3] == ((IIR1_CHUNK,), "float32", 2) and calls == IIR1_HELD
+               for key, calls in iir1_held.items()):
+        fail(f"phase 4's de-emphasis (1 x {IIR1_CHUNK}) was not held to its "
+             f"plain form")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

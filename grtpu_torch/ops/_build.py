@@ -3,7 +3,8 @@
 ``nvcc`` compiles each source (``fir_tile.cu``, which includes
 ``fir_common.cuh``; ``fir_decim.cu`` and ``fir_decim_mma.cu``, the
 decimating FIR's two routes, which include ``fir_decim.cuh``;
-``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the two recursion kernels) for
+``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the two recursion kernels;
+``iir1.cu``, the first-order IIR) for
 ``sm_90a`` into a shared library of its own with a plain C interface, all
 compilers started together, and the libraries are loaded with ``ctypes``.
 The decimating routes are two sources so that their instances, the most
@@ -36,7 +37,7 @@ from types import SimpleNamespace
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu",
            CSRC / "fir_decim_mma.cu", CSRC / "trellis_viterbi.cu",
-           CSRC / "atsc_dfe.cu")
+           CSRC / "atsc_dfe.cu", CSRC / "iir1.cu")
 HEADERS = (CSRC / "fir_common.cuh", CSRC / "fir_decim.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,8 +151,8 @@ def library() -> SimpleNamespace:
     global _lib
     if _lib is not None:
         return _lib
-    tile, decim, decim_mma, viterbi, dfe = (ctypes.CDLL(str(path))
-                                            for path in build())
+    tile, decim, decim_mma, viterbi, dfe, iir1 = (ctypes.CDLL(str(path))
+                                                  for path in build())
     i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
     sigs = {
         tile: {
@@ -181,6 +182,10 @@ def library() -> SimpleNamespace:
         dfe: {
             "dfe_feedback_fwd": ([p, p, p, i, i, p, p, p], i),
             "dfe_error_string": ([i], ctypes.c_char_p),
+        },
+        iir1: {
+            "iir1_fwd": ([p, p, p, i, p, p, i, p, i, i, i, i, i, p, p, p], i),
+            "iir1_error_string": ([i], ctypes.c_char_p),
         },
     }
     lib = SimpleNamespace()

@@ -78,11 +78,13 @@ from grtpu_torch.ops.fir import (PRECISIONS, fir_filter, pad_last,
 LANE = 128
 
 # Kernel launch counts, by the name of the C entry that was called: the FIR
-# kernels here, and the two recursion kernels of grtpu_torch.ops.cuda_trellis,
-# so that one record of a CUDA-graph capture holds them all.
+# kernels here, the two recursion kernels of grtpu_torch.ops.cuda_trellis and
+# the first-order IIR of grtpu_torch.ops.cuda_iir, so that one record of a
+# CUDA-graph capture holds them all.
 FIR_KERNELS = ("fir_tile_fwd", "fir_toeplitz_fwd", "fir_decim_fwd",
                "fir_decim_mma_fwd", "fir_cascade_fwd", "fir_cascade_mma_fwd")
-launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd"), 0)
+launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd",
+                                        "iir1_fwd"), 0)
 
 # Open records of CUDA-graph captures (recording_launches), innermost last.
 _recording = []

@@ -10,8 +10,10 @@ Port of ``grtpu.ops.dsp``.  Analogs of:
     discriminator via conjugate product + atan2 (history = 2).
   * gr_frequency_modulator_fc — phase integrator.
   * gr_single_pole_iir / gr_iir_filter_ffd — recursive filters.  A stable
-    constant pole becomes a truncated FIR (the de-emphasis path); slow poles
-    use a log-depth scan written out in torch ops.
+    constant pole becomes a truncated FIR (the de-emphasis path): one launch
+    of the ``iir1_fwd`` kernel on the card (:mod:`grtpu_torch.ops.cuda_iir`),
+    a Toeplitz product on the CPU; slow poles use a log-depth scan written
+    out in torch ops.
   * gri_control_loop — loop gains and phase wrapping for the carrier loops.
 """
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from grtpu_torch.utils.device import resolve
+from grtpu_torch.ops import cuda_iir
 from grtpu_torch.ops.fir import (as_taps, fir_filter, pad_last, phase_advance,
                                  phase_ramp)
 
@@ -199,21 +202,53 @@ def _slow_pole_chunked(aa: float, b: torch.Tensor, y0, L: int):
     return y, y[..., n - 1]
 
 
+def _pole_taps(aa: float, tol: float = 1e-9) -> int:
+    """Taps of the truncated impulse response of a pole ``aa`` (|aa| < 1):
+    past ceil(log(tol)/log|aa|) of them a^k is below ``tol``."""
+    return int(np.ceil(np.log(tol) / np.log(max(abs(aa), 1e-12)))) \
+        if aa != 0.0 else 1
+
+
+# the most taps a pole's truncated response takes before the slow-pole paths
+MAX_POLE_TAPS = 128
+
+# (a, K, device) -> (a^0..a^(K-1), a^1..a^K): never evicted, because a
+# captured CUDA graph holds the raw pointers of the ones it launched with
+_POLE_SERIES = {}
+
+
+def pole_series(aa: float, ntaps: int, device):
+    """(a^0..a^(K-1), a^1..a^K) float32 on ``device``, by
+    :func:`_pow_series` (so bit for bit what it makes), made once for each
+    (a, K, device) and kept.  Made inside a CUDA-graph capture (a pole first
+    seen there), they are made in the graph and not kept."""
+    key = (aa, ntaps, torch.device(device))
+    got = _POLE_SERIES.get(key)
+    if got is None:
+        got = (_pow_series(aa, 0, ntaps, device),
+               _pow_series(aa, 1, ntaps, device))
+        if not (got[0].is_cuda and torch.cuda.is_current_stream_capturing()):
+            _POLE_SERIES[key] = got
+    return got
+
+
 def linear_recurrence_const(a: float, b: torch.Tensor, y0,
-                            tol: float = 1e-9, max_taps: int = 128):
+                            tol: float = 1e-9, max_taps: int = MAX_POLE_TAPS):
     """Solve y[i] = a*y[i-1] + b[i] for CONSTANT |a| < 1, exact to ``tol``.
 
     The impulse response a^k decays geometrically, so past
     n = ceil(log(tol)/log|a|) taps the recurrence IS a short FIR:
-    y = conv(b, [1, a, a^2, ...]) + a^(i+1)*y0 — one Toeplitz matmul.  Slow
-    poles (more than ``max_taps`` taps) use the scan (n <= 2^17) or the
-    chunked closed form.  b may be (..., n) batched on leading axes (y0
-    broadcasting along them).  Returns (y, y_last)."""
+    y = conv(b, [1, a, a^2, ...]) + a^(i+1)*y0.  On a CUDA tensor (float32
+    or complex64) that is one launch of ``iir1_fwd``
+    (:mod:`grtpu_torch.ops.cuda_iir`); on a CPU tensor, its plain form, one
+    Toeplitz matmul (:func:`truncated_plain`).  Slow poles (more than
+    ``max_taps`` taps) use the scan (n <= 2^17) or the chunked closed form.
+    b may be (..., n) batched on leading axes (y0 broadcasting along them).
+    Returns (y, y_last)."""
     aa = float(a)
     if not (0.0 <= abs(aa) < 1.0):
         raise ValueError("linear_recurrence_const needs |a| < 1")
-    ntaps = int(np.ceil(np.log(tol) / np.log(max(abs(aa), 1e-12)))) \
-        if aa != 0.0 else 1
+    ntaps = _pole_taps(aa, tol)
     if ntaps > max_taps:
         n_last = b.shape[-1]
         y0 = _scalar_like(y0, b).expand(b.shape[:-1])
@@ -221,6 +256,18 @@ def linear_recurrence_const(a: float, b: torch.Tensor, y0,
             return linear_recurrence(torch.full_like(b, aa), b, y0)
         L = int(np.clip(np.log(8.0) / max(-np.log(abs(aa)), 1e-12), 8, 4096))
         return _slow_pole_chunked(aa, b, y0, L)
+    if b.device.type == "cuda":
+        y, _ = cuda_iir.iir1_fwd(b, None, None, *pole_series(aa, ntaps,
+                                                             b.device), y0)
+    else:
+        y = truncated_plain(aa, ntaps, b, y0)
+    return y, y[..., -1]
+
+
+def truncated_plain(aa: float, ntaps: int, b: torch.Tensor, y0):
+    """The plain form of ``iir1_fwd``'s recurrence (what a CPU tensor runs):
+    y[i] = sum_{k < ntaps} a^k b[i-k] + a^(i+1) y0 over b's last axis, as
+    one Toeplitz product on any device."""
     # convolution taps: y[i] = sum_k taps[k] b[i-k] with taps[k] = a^k over
     # the zero-preloaded input
     taps = _pow_series(aa, 0, ntaps, b.device)
@@ -229,8 +276,7 @@ def linear_recurrence_const(a: float, b: torch.Tensor, y0,
     # incoming-state correction: + a^(i+1) * y0 (negligible past ntaps)
     m = min(n, ntaps)
     corr = pad_last(_pow_series(aa, 1, m, b.device), 0, n - m)
-    y = y + _scalar_like(y0, b).unsqueeze(-1) * corr
-    return y, y[..., -1]
+    return y + _scalar_like(y0, b).unsqueeze(-1) * corr
 
 
 def single_pole_iir(x: torch.Tensor, state, alpha: float):
@@ -252,6 +298,18 @@ def iir_filter(x: torch.Tensor, state, fftaps, fbtaps):
     fb_host = np.asarray(fbtaps, np.float32)
     nff, nfb = ff.shape[0], fb_host.shape[0]
     x_hist, y_hist = state
+    if nfb == 2 and x.device.type == "cuda":
+        # a fast stable pole: the feed-forward taps and the recurrence in
+        # one launch of iir1_fwd
+        a1 = float(fb_host[1])
+        ntaps = _pole_taps(a1) if abs(a1) < 1.0 else None
+        if ntaps is not None and ntaps <= MAX_POLE_TAPS:
+            y, x_next = cuda_iir.iir1_fwd(
+                x, x_hist if nff > 1 else None, ff,
+                *pole_series(a1, ntaps, x.device), y_hist[-1])
+            # an empty chunk leaves the state as it was
+            return y, (x_hist if x_next is None else x_next,
+                       y[-1:] if y.shape[-1] else y_hist)
     xs = torch.cat([x_hist, x]) if nff > 1 else x
     v = fir_filter(xs, ff, 1) if nff > 1 else x * ff[0]
 

@@ -7,7 +7,7 @@ with its audio FIR on the hand kernel, the tuner -> WBFM chain, the
 64-channel ``PfbChannelizer`` graph, the DMR variable-rate stream, a
 ``NoiseSource`` graph (its counter-based stream replayed), the
 ``PfbClockSync`` and ``Agc`` loops, and a checkpoint taken between two
-captured runs.  The hand kernel's launch count under replay is one a chunk,
+captured runs.  The hand kernels' launch counts under replay are one a chunk,
 and a block that reads the card from the host inside ``apply`` makes the
 capture raise, naming the block.  Every test needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  The file imports no JAX; from the
@@ -87,8 +87,9 @@ def wbfm_kernel_graph():
 
 def test_wbfm_kernel_path_and_launches_under_replay(dev):
     """The main path: 16 chunks of 65,536 twice; the captured output equals
-    the eager one bit for bit, and fir_decim_mma_fwd counts one launch a
-    chunk (one eager warm-up, then one a replay)."""
+    the eager one bit for bit, and fir_decim_mma_fwd and the de-emphasis'
+    iir1_fwd count one launch a chunk each (one eager warm-up, then one a
+    replay)."""
     x = torch.from_numpy(fm_tone(16 * 65536)).to(dev)
     eager = StreamExecutor(wbfm_kernel_graph(), chunk_size=65536, device=dev)
     loop = StreamExecutor(wbfm_kernel_graph(), chunk_size=65536, device=dev)
@@ -99,7 +100,8 @@ def test_wbfm_kernel_path_and_launches_under_replay(dev):
     assert_equal_runs(want, got)
     moved = {k: cuda_fir.launches[k] - before[k] for k in before}
     assert moved["fir_decim_mma_fwd"] == 32
-    assert sum(moved.values()) == 32
+    assert moved["iir1_fwd"] == 32
+    assert sum(moved.values()) == 64
     assert all(p.graph is not None
                for p in loop._device_loop.pieces.values())
 
