@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from radiobench import hostrecord
 from radiobench import trace as tracing
 from radiobench import traffic
 
@@ -47,8 +48,14 @@ def since_process_start() -> float:
 
 
 def module(kind: str, name: str):
+    """``<kind>/<name>.py``; a metric ``<base>.<cells>`` without a file of
+    its own is read by ``<kind>/<base>.py``, the same quantity in other
+    cells."""
     path = HERE / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"radiobench_{kind}_{name}", path)
+    if not path.exists():
+        path = HERE / kind / f"{name.split('.')[0]}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"radiobench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -132,7 +139,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     traffic mix (``"traffic"``): the CPU tests run the same path at a size a
     test can hold.  ``program_control`` puts the reference, at the
     precision below the configuration's, in the program's place for the
-    check (the control's readings)."""
+    check (the control's readings).  The result's ``host`` object records
+    where the process ran (``hostrecord.describe``) and ``us_chunk``, the
+    host's mean microseconds a chunk over the window's untraced requests."""
     bench, cell, cfg, mix, limits = load_cell(root, workload)
     overrides = overrides or {}
     cfg = {**cfg, **overrides.get("config", {})}
@@ -201,6 +210,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         launches = {k: v - launches0.get(k, 0) for k, v in cuda_fir.launches.items()}
         prof.__exit__(None, None, None)
     n_req = len(lat)
+    untraced_entry_s = entry_s[:untraced] or entry_s
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     if n_req >= 6:   # warm-up left inside the window shows as a slow first part
         parts = np.array_split(np.array(lat[:untraced or n_req]) * 1e3, 6)
@@ -226,15 +236,18 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
                   "count": 1, "memory_peak_bytes": int(peak)}}
     if not trace:
         wall = t_end - t0
+        # an end-to-end metric <base>.<cells> is <base> with a bound of its own
+        values = {"input_rate": n_req * plan.samples_per_request / wall / 1e6,
+                  "req_p95_ms": float(np.percentile(lat, 95)) * 1e3 if lat
+                  else float("inf"),
+                  "setup_s": setup_s}
         result["metrics"] = {
-            "input_rate": {"value": n_req * plan.samples_per_request / wall / 1e6,
-                           "unit": "Msamples/s"},
-            "req_p95_ms": {"value": float(np.percentile(lat, 95)) * 1e3 if lat
-                           else float("inf"), "unit": "ms"},
-            "setup_s": {"value": setup_s, "unit": "s"}}
+            m["name"]: {"value": values[m["name"].split(".")[0]], "unit": m["unit"]}
+            for m in bench["end_to_end"]
+            if workload in m.get("workloads", [workload])}
     elif prof is not None:
         tr_ = tracing.reduce(prof)
-        ctx = {"trace": tr_, "entry_s": entry_s[:untraced] or entry_s,
+        ctx = {"trace": tr_, "entry_s": untraced_entry_s,
                "launches": launches, "cfg": cfg, "mix": mix}
         for m in bench["per_layer"]:
             if workload not in m.get("workloads", [workload]):
@@ -253,5 +266,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
             else None,
             "traced_ms_req": 1e3 * float(np.mean(lat[untraced:]))
             if len(lat) > untraced else None}
+    result["host"] = {
+        **hostrecord.describe(torch.cuda.get_device_properties(0) if cuda else None),
+        "us_chunk": module("metrics", "host_us_chunk").read(
+            {"entry_s": untraced_entry_s, "mix": mix})}
     result["checks"] = checks
     return result

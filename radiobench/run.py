@@ -74,8 +74,11 @@ def main(argv=None) -> int:
 
 
 def report(result: dict):
-    """The numbers compared, each beside its limit, as the last lines of
-    standard error; the result as the last line of standard output."""
+    """Where the run ran, then the numbers compared, each beside its limit,
+    as the last lines of standard error; the result as the last line of
+    standard output."""
+    print(f"radiobench: host {json.dumps(result['host'])}", file=sys.stderr,
+          flush=True)
     for name, c in result["checks"].items():
         print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr, flush=True)
