@@ -81,12 +81,18 @@ Phases (each raises on failure; nothing is caught):
         (65,536 at the quad rate: the main path's kernel row).  Kernel
         launch counts are zeroed before and read after: fir_decim_mma_fwd
         must have been launched.  Gates: audio SNR > 30 dB against the
-        de-emphasized tone; kernel path within 1e-4 of the impl="mxu" path;
-        the rotator's carried phase equal to a numpy float32 model of the
-        recurrence within 1e-3 rad (its distance from the exact closed form
-        is printed: float32 cannot hold it at this chunk, see PERF.md).
+        de-emphasized tone; kernel path within 1e-4 of the impl="mxu" path.
         Prints Msamples/s of input.  The kernel path runs again at chunk
-        65,536, and the audio SNR is printed at both chunks.
+        65,536, and the audio SNR is printed at both chunks.  Then the tuner
+        itself on the hand kernel (impl="kernel", the ccc mode) at
+        radiobench's wbfm_rtl2048.file shape, chunk 4,194,304 under
+        device_loop: per chunk two fir_decim_mma_fwd launches (tuner, audio
+        FIR), one fir_decim_cc and one iir1_fwd, and nothing else; within
+        1e-4 of the tuner on impl="mxu".  The rotator's carried phase at a
+        centre of 400.1 kHz (at 400 kHz a chunk is a whole number of
+        cycles, so a phase that never moved would pass) within 1e-6 rad of
+        the exact closed form, -2 pi ((f_c N) mod f_s) / f_s worked out in
+        rationals, after 2 and after 4 chunks.
      c. the same capture through the channel-select filter of a narrowband
         receiver, FirFilter(8, the tuner's 99 taps turned to +400 kHz,
         "ccc", impl="kernel"), chunk 524,288, eager and device_loop, two
@@ -333,6 +339,7 @@ import math
 import subprocess
 import sys
 import time
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -613,7 +620,8 @@ def check_kernels(torch, cf, fir, firdes, _build):
         before = dict(cf.launches)
         got = run()
         launched = {n: cf.launches[n] - before[n] for n in cf.launches
-                    if cf.launches[n] != before[n]}
+                    if cf.launches[n] != before[n]
+                    and n not in cf.MODE_COUNTS}
         if launches_a_call and launched != {kernel: launches_a_call}:
             fail(f"{name} {precision}: one call launched {launched}, "
                  f"expected {kernel} {launches_a_call} times")
@@ -1388,6 +1396,8 @@ CAPTURE_SAMPLES = 1 << 23
 CAPTURE_CHUNK = 524288
 TUNE_HZ = 400e3
 TUNER_DECIM = 8
+CELL_CHUNK = 4194304         # radiobench's wbfm_rtl2048.file runs at this chunk
+PHASE_HZ = 400.1e3           # a centre at which a chunk leaves the phase off 0
 NBFM_SAMPLES = 1 << 20
 STEREO_SAMPLES = 1 << 21
 PFB_CHANNELS = 64            # benchmarks/channelizer_bench.py:37
@@ -1491,11 +1501,11 @@ def run_tuner_wbfm(torch, cf):
 
     for name in cf.launches:
         cf.launches[name] = 0
-    audio, rate, tuners, exs = {}, {}, {}, {}
+    audio, rate = {}, {}
     for impl in ("kernel", "mxu"):
-        exs[impl], tuners[impl] = executor(impl)
+        ex = executor(impl)[0]
         t0 = time.perf_counter()
-        y = exs[impl].run(x_dev)
+        y = ex.run(x_dev)
         torch.cuda.synchronize()
         rate[impl] = CAPTURE_SAMPLES / (time.perf_counter() - t0) / 1e6
         audio[impl] = y.cpu().numpy()
@@ -1536,28 +1546,6 @@ def run_tuner_wbfm(torch, cf):
           f"(tol {TOL['bf16x3']:g})")
     if not diff <= TOL["bf16x3"]:
         fail("tuner -> WBFM kernel path disagrees with the mxu path")
-
-    # the rotator's carried phase: the float32 recurrence, modelled in numpy
-    tuner = tuners["kernel"]
-    got = float(exs["kernel"].state["blocks"][str(tuner.uid)])
-    step = np.float32(tuner.phase_inc * TUNER_DECIM
-                      * (CAPTURE_CHUNK // TUNER_DECIM))
-    model = np.float32(0.0)
-    for _ in range(nchunks):
-        model = np.float32(np.remainder(np.float32(model + step),
-                                        np.float32(2 * np.pi)))
-    exact = math.remainder(tuner.phase_inc * CAPTURE_SAMPLES, 2 * math.pi)
-    off_model = abs(math.remainder(got - float(model), 2 * math.pi))
-    off_exact = abs(math.remainder(got - exact, 2 * math.pi))
-    half_ulp = float(np.spacing(np.float32(abs(float(step))))) / 2
-    print(f"rotator phase after {nchunks} chunks: {got:.6f} rad; float32 model "
-          f"{float(model):.6f} (off by {off_model:.2e}, gate 1e-3); exact "
-          f"closed form {exact:.6f} (off by {off_exact:.2e}; half a float32 "
-          f"step at {abs(float(step)):.0f} rad is {half_ulp:.2e})")
-    if not off_model <= 1e-3:
-        fail("the rotator's carried phase left its float32 recurrence")
-    if not off_exact <= nchunks * half_ulp:
-        fail("the rotator's carried phase drifted past float32's bound")
 
     # both modes at this chunk (mxu and kernel) and, on the kernel path, at
     # the main path's chunk 65,536: the audio SNR at each chunk separates
@@ -1624,6 +1612,74 @@ def run_tuner_wbfm(torch, cf):
                           "snr": audio_snr}
 
 
+def run_tuner_kernel(torch, cf, capture):
+    """Phase 6a, the tuner on the hand kernel at the benchmark cell's shape
+    (radiobench's wbfm_rtl2048.file): FreqXlatingFirFilter(8, the 99-tap
+    low-pass, TUNE_HZ, impl="kernel") -> WfmRcv(impl="kernel"), chunk
+    CELL_CHUNK, two runs eager and two under device_loop.  Gates: each
+    device_loop run launches, a chunk, fir_decim_mma_fwd twice (the tuner's
+    ccc launch and the audio FIR), fir_decim_cc once and iir1_fwd once, and
+    nothing else (counts zeroed just before the run, read just after); its
+    output torch.equal to the eager run's; the first within bf16x3's
+    tolerance of the same chain with the tuner on impl="mxu".  Then the
+    rotator's carried phase, at PHASE_HZ, where a chunk does not bring the
+    phase back to 0 (at TUNE_HZ every chunk is a whole number of cycles):
+    after each of two device_loop runs (the capture, then a replay) within
+    1e-6 rad of the exact closed form -2 pi ((f_c N) mod f_s) / f_s, worked
+    out in rationals."""
+    from grtpu_torch import StreamExecutor
+    from grtpu_torch.blocks.filter import FreqXlatingFirFilter
+    from grtpu_torch.models.fm import WfmRcv
+    from grtpu_torch.utils import firdes
+
+    taps = firdes.low_pass(1.0, CAPTURE_FS, 100e3, 50e3)
+
+    def executor(tuner_impl, centre=TUNE_HZ):
+        tuner = FreqXlatingFirFilter(TUNER_DECIM, taps, centre, CAPTURE_FS,
+                                     impl=tuner_impl)
+        g = chain_graph(torch, [tuner, WfmRcv(QUAD_RATE, AUDIO_DECIM,
+                                              impl="kernel")],
+                        torch.complex64, [torch.float32])
+        return StreamExecutor(g, chunk_size=CELL_CHUNK, device="cuda"), tuner
+
+    x_dev = torch.from_numpy(capture).to("cuda")
+    nchunks = CAPTURE_SAMPLES // CELL_CHUNK
+    label = f"tuner (kernel) -> WBFM, chunk {CELL_CHUNK}"
+    outs, _, _, loop_counts = two_modes(
+        torch, label, lambda: executor("kernel")[0], (x_dev,), CAPTURE_SAMPLES,
+        cf=cf)
+    want = {"fir_decim_mma_fwd": 2 * nchunks, "fir_decim_cc": nchunks,
+            "iir1_fwd": nchunks}
+    for run in loop_counts:
+        if {k: v for k, v in run.items() if v} != want:
+            fail(f"{label} under device_loop launched {run}; expected {want} "
+                 f"and nothing else")
+    y = outs[0].cpu().numpy()
+    ref = executor("mxu")[0].run(x_dev).cpu().numpy()
+    if y.shape != ref.shape or not np.isfinite(y).all():
+        fail(f"{label}: output shape {y.shape} or non-finite values")
+    diff = np.abs(y - ref).max() / np.abs(ref).max()
+    print(f"{label} vs the tuner on impl=\"mxu\": max_rel_err={diff:.3e} "
+          f"(tol {TOL['bf16x3']:g})", flush=True)
+    if not diff <= TOL["bf16x3"]:
+        fail(f"{label} disagrees with the tuner on impl=\"mxu\"")
+
+    ex, tuner = executor("kernel", PHASE_HZ)
+    for run in (1, 2):
+        ex.run(x_dev, device_loop=True)
+        got = float(ex.state["blocks"][str(tuner.uid)])
+        n = run * CAPTURE_SAMPLES
+        turns = (-Fraction(PHASE_HZ) / Fraction(CAPTURE_FS) * n) % 1
+        exact = 2 * math.pi * float(turns)
+        off = abs(math.remainder(got - exact, 2 * math.pi))
+        print(f"rotator phase at {PHASE_HZ / 1e3:g} kHz after {run * nchunks} "
+              f"chunks of {CELL_CHUNK} (device_loop): {got:.9f} rad; exact "
+              f"closed form {exact:.9f} (off by {off:.2e}, gate 1e-6)",
+              flush=True)
+        if turns == 0 or not off <= 1e-6:
+            fail("the rotator's carried phase left the exact closed form")
+
+
 def run_channel_select(torch, cf, capture, decim=TUNER_DECIM):
     """Phase 6c: config #1's capture through the channel-select filter of a
     narrowband receiver, FirFilter(decim, the tuner's 99-tap low-pass
@@ -1632,7 +1688,8 @@ def run_channel_select(torch, cf, capture, decim=TUNER_DECIM):
     1 (a complex matched filter at full rate), at chunk 524,288 in both run
     modes, two runs each (an executor carries its history from one run into
     the next, so runs are compared by their index).  Gates: one launch a
-    chunk of a FIR kernel and nothing else (counts zeroed just before each
+    chunk of a FIR kernel, counted under fir_decim_cc too, and nothing else
+    (counts zeroed just before each
     run and read just after it), each device_loop run torch.equal to the
     eager run of its index, the first run within bf16x3's tolerance of
     impl="mxu"'s."""
@@ -1669,7 +1726,8 @@ def run_channel_select(torch, cf, capture, decim=TUNER_DECIM):
             kernel = sum(counts.get(n, 0) for n in ("fir_decim_fwd",
                                                      "fir_decim_mma_fwd",
                                                      "fir_tile_fwd"))
-            if kernel != nchunks or sum(counts.values()) != nchunks:
+            if (kernel != nchunks or counts.get("fir_decim_cc") != nchunks
+                    or sum(counts.values()) != 2 * nchunks):
                 fail(f"channel select ccc d{decim} ({mode}) launched "
                      f"{counts}; expected one FIR launch a chunk "
                      f"({nchunks})")
@@ -5120,6 +5178,7 @@ def main() -> int:
     # phase 6: config #1 in full (tuner -> WBFM) and the FM family; its own
     # launch counts, zeroed before and read after
     _, _, config1 = run_tuner_wbfm(torch, cf)
+    run_tuner_kernel(torch, cf, config1["capture"])
     run_channel_select(torch, cf, config1["capture"])
     run_channel_select(torch, cf, config1["capture"], decim=1)
     run_fm_family(torch)

@@ -89,7 +89,7 @@ class SigSource(Block):
         self._dtype = self.out_ports[0].dtype
 
     def init_state(self):
-        return torch.zeros((), dtype=torch.float32)
+        return torch.zeros((), dtype=torch.float64)
 
     def apply(self, state, n: int):
         inc = 2 * np.pi * self.freq / self.fs
@@ -115,7 +115,7 @@ class SigSource(Block):
                 y = self.amp * (2 * torch.abs(2 * frac - 1) - 1) + self.offset
             else:  # sawtooth
                 y = self.amp * (2 * frac - 1) + self.offset
-        return phase_advance(state, inc * n, state.device), y.to(self._dtype)
+        return phase_advance(state, inc, n, state.device), y.to(self._dtype)
 
 
 class Agc(Block):

@@ -12,6 +12,8 @@ copy per device it has run on, so a step moves no taps to the device.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 import torch
 
@@ -21,13 +23,36 @@ from grtpu_torch.ops.fft_filter import fft_filter as _fftfir
 from grtpu_torch.ops.fir import as_taps, fir_filter as _fir
 from grtpu_torch.ops.fir import freq_xlating_fir_filter as _fx
 from grtpu_torch.ops.fir import interp_fir_filter as _ifir
-from grtpu_torch.ops.fir import phase_ramp, rotate_taps
+from grtpu_torch.ops.fir import phase_ramp, position_ramp, rotate_taps
 from grtpu_torch.ops import mmse_interp
 from grtpu_torch.utils import firdes
 
 
 def _dt(tag):
     return {"f": torch.float32, "c": torch.complex64, "s": torch.int16}[tag]
+
+
+def _resolve_impl(impl: str, ntaps: int, decimation: int) -> str:
+    """A FIR's ``impl`` as one of "mxu", "fft", "kernel": "auto" picks fft
+    for >= 128 taps at decimation 1, else mxu, as grtpu does; "pallas" is
+    an alias of "kernel"."""
+    if impl == "auto":
+        impl = "fft" if ntaps >= 128 and decimation == 1 else "mxu"
+    if impl == "pallas":
+        impl = "kernel"
+    if impl not in ("mxu", "fft", "kernel"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
+def _fir_of(impl: str, sig: str):
+    """The filter ``f(x, taps, decim)`` of a resolved ``impl``: for
+    "kernel" the hand kernel's entry for the fff, ccf or ccc stream (at its
+    default bf16x3), else the overlap-save or the plain matmul FIR."""
+    if impl == "kernel":
+        return {"fff": cuda_fir.fir_decim, "ccf": cuda_fir.fir_decim_c,
+                "ccc": cuda_fir.fir_decim_cc}[sig]
+    return _fftfir if impl == "fft" else _fir
 
 
 class _TapsOnDevice:
@@ -69,12 +94,7 @@ class FirFilter(_TapsOnDevice, Block):
         super().__init__(name)
         self.taps = np.asarray(
             taps, np.complex64 if tap_t == "c" else np.float32)
-        if impl == "auto":
-            impl = "fft" if len(taps) >= 128 and decimation == 1 else "mxu"
-        if impl == "pallas":
-            impl = "kernel"
-        if impl not in ("mxu", "fft", "kernel"):
-            raise ValueError(f"unknown impl {impl!r}")
+        impl = _resolve_impl(impl, len(taps), decimation)
         if impl == "kernel" and sig not in ("fff", "ccf", "ccc"):
             raise ValueError("impl='kernel' supports fff/ccf/ccc streams "
                              "(the kernel works on f32 planes)")
@@ -83,19 +103,10 @@ class FirFilter(_TapsOnDevice, Block):
         self._out_cast = _dt(out_t)
 
     def apply(self, state, x):
-        taps = self._taps_on(x.device)
-        if self.impl == "kernel":
-            if self._sig == "fff":
-                y = cuda_fir.fir_decim(x, taps, self.decim)
-            elif self._sig == "ccf":
-                y = cuda_fir.fir_decim_c(x, taps, self.decim)
-            else:  # ccc
-                y = cuda_fir.fir_decim_cc(x, taps, self.decim)
-            return state, y.to(self._out_cast)
         if not (x.is_floating_point() or x.is_complex()):
             x = x.to(torch.float32)
-        f = _fftfir if self.impl == "fft" else _fir
-        y = f(x, taps, self.decim)
+        y = _fir_of(self.impl, self._sig)(x, self._taps_on(x.device),
+                                          self.decim)
         if self._out_cast == torch.int16:
             y = torch.clamp(torch.round(y), -32768, 32767)
         return state, y.to(self._out_cast)
@@ -185,13 +196,23 @@ class FreqXlatingFirFilter(_TapsOnDevice, Block):
     """gr_freq_xlating_fir_filter_XXX: band-select + translate + decimate.
 
     taps: real (or complex) prototype lowpass; center_freq/fs set the
-    translation.  Carried state = rotator phase.  As in grtpu the filter is
-    the plain matmul FIR with the rotated complex taps."""
+    translation.  Carried state = the rotator's phase, float64 radians in
+    [0, 2 pi).  The rotator's step is the exact rational number of cycles
+    -center_freq / fs an input sample, so every output is turned by its
+    exact phase to float32's rounding, over any length of stream.
+
+    ``impl`` takes :class:`FirFilter`'s values for the filter over the
+    rotated complex taps: "mxu" (the default, as in grtpu: the plain matmul
+    FIR), "fft", "auto" (as FirFilter picks) and "kernel" — the hand
+    kernel's complex-taps mode, ``cuda_fir.fir_decim_cc`` at its default
+    bf16x3 (one launch a chunk on the card), for complex streams; "pallas"
+    is an alias of "kernel"."""
 
     _taps_attr = "rtaps"
 
     def __init__(self, decimation: int, taps, center_freq: float,
-                 sampling_freq: float, sig: str = "ccf", name=None):
+                 sampling_freq: float, sig: str = "ccf", name=None,
+                 impl: str = "mxu"):
         in_t, out_t, tap_t = sig
         self.in_ports = (Port(_dt(in_t)),)
         self.out_ports = (Port(torch.complex64),)
@@ -202,16 +223,21 @@ class FreqXlatingFirFilter(_TapsOnDevice, Block):
         self.center_freq = center_freq
         self.fs = sampling_freq
         self.rtaps = rotate_taps(taps, center_freq, sampling_freq)
-        self.phase_inc = -2 * np.pi * center_freq / sampling_freq
+        self.cycles_inc = -Fraction(center_freq) / Fraction(sampling_freq)
+        impl = _resolve_impl(impl, len(taps), decimation)
+        if impl == "kernel" and in_t != "c":
+            raise ValueError("impl='kernel' takes a complex stream "
+                             "(the kernel's ccc mode)")
+        self.impl = impl
 
     def init_state(self):
-        return torch.zeros((), dtype=torch.float32)
+        return torch.zeros((), dtype=torch.float64)
 
     def apply(self, state, x):
         if not (x.is_floating_point() or x.is_complex()):
             x = x.to(torch.float32)
-        y, ph = _fx(x, self._taps_on(x.device), state, self.phase_inc,
-                    self.decim)
+        y, ph = _fx(x, self._taps_on(x.device), state, self.cycles_inc,
+                    self.decim, fir=_fir_of(self.impl, "ccc"))
         return ph, y
 
 
@@ -367,6 +393,6 @@ class FractionalInterpolator(Block):
     def apply(self, state, x):
         n_in = x.shape[0] - (self.history - 1)
         nout = n_in // self.decim * self.interp
-        pos = phase_ramp(self.phase0, self.ratio, nout, x.device)
+        pos = position_ramp(self.phase0, self.ratio, nout, x.device)
         y = mmse_interp.mmse_interpolate(x, pos)
         return state, y.to(self.out_ports[0].dtype)

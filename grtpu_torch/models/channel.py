@@ -26,7 +26,7 @@ class _Rotator(Block):
         self.phase0 = phase0
 
     def init_state(self):
-        return torch.tensor(self.phase0, dtype=torch.float32)
+        return torch.tensor(self.phase0, dtype=torch.float64)
 
     def apply(self, state, x):
         y, ph = dsp.rotate(x, state, self.inc)

@@ -80,11 +80,14 @@ LANE = 128
 # Kernel launch counts, by the name of the C entry that was called: the FIR
 # kernels here, the two recursion kernels of grtpu_torch.ops.cuda_trellis and
 # the first-order IIR of grtpu_torch.ops.cuda_iir, so that one record of a
-# CUDA-graph capture holds them all.
+# CUDA-graph capture holds them all.  MODE_COUNTS name a mode of a launch
+# that its C entry's count already holds: ``fir_decim_cc`` counts the calls
+# of :func:`fir_decim_cc` that ran as one launch in the complex-taps mode.
 FIR_KERNELS = ("fir_tile_fwd", "fir_toeplitz_fwd", "fir_decim_fwd",
                "fir_decim_mma_fwd", "fir_cascade_fwd", "fir_cascade_mma_fwd")
+MODE_COUNTS = ("fir_decim_cc",)
 launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd",
-                                        "iir1_fwd"), 0)
+                                        "iir1_fwd") + MODE_COUNTS, 0)
 
 # Open records of CUDA-graph captures (recording_launches), innermost last.
 _recording = []
@@ -1003,8 +1006,11 @@ def _decim_complex(x, taps, decim, precision, cplx, _force_planes=False):
     if (_device_kind(x) == "cuda" and not _force_planes
             and _route(precision, d, k, c, n // d, cplx=cplx) != "planes"):
         tapsets = _complex_taps(taps, x.device, cplx)
-        return _launch_tile(x.contiguous(), tapsets, d, 0, n // d, precision,
-                            cplx=cplx)
+        y = _launch_tile(x.contiguous(), tapsets, d, 0, n // d, precision,
+                         cplx=cplx)
+        if cplx == CCC:
+            count_launch("fir_decim_cc")
+        return y
     planes = torch.cat([x.real, x.imag], dim=0)
     if taps.ndim == 2 and c % taps.shape[0]:
         rows = torch.arange(c, device=x.device) % taps.shape[0]

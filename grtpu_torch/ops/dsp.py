@@ -4,8 +4,9 @@ the DC blocker, in PyTorch.
 
 Port of ``grtpu.ops.dsp``.  Analogs of:
   * gr_rotator.h / gri_fxpt NCO — complex phase rotation and waveform
-    synthesis: the whole time-block's phase ramp is made at once in float32
-    with a carried phase scalar, wrapped each chunk.
+    synthesis: the whole time-block's phase ramp is made at once, reduced
+    mod 2 pi in float64 before it is rounded to float32, from a float64
+    carried phase wrapped each chunk.
   * gr_quadrature_demod_cf (general/gr_quadrature_demod_cf.cc:47-62) — FM
     discriminator via conjugate product + atan2 (history = 2).
   * gr_frequency_modulator_fc — phase integrator.
@@ -50,13 +51,13 @@ def _pow_series(a: float, start: int, n: int, device) -> torch.Tensor:
 def rotate(x: torch.Tensor, phase, phase_inc: float):
     """Multiply x by exp(j*(phase + i*phase_inc)); returns (y, new_phase).
 
-    The phase ramp is float32 (grtpu's arithmetic, see
-    :func:`grtpu_torch.ops.fir.phase_ramp`); the carried phase is wrapped
-    each chunk."""
+    The phases are reduced mod 2 pi before they are rounded to float32
+    (:func:`grtpu_torch.ops.fir.phase_ramp`); the carried phase is float64,
+    wrapped each chunk."""
     n = x.shape[0]
     ph = phase_ramp(phase, phase_inc, n, x.device)
     y = x * torch.complex(torch.cos(ph), torch.sin(ph))
-    return y.to(torch.complex64), phase_advance(phase, phase_inc * n, x.device)
+    return y.to(torch.complex64), phase_advance(phase, phase_inc, n, x.device)
 
 
 def _phase_device(phase, device):
@@ -66,24 +67,26 @@ def _phase_device(phase, device):
 
 
 def nco_sin(phase, phase_inc: float, n: int, device=None):
-    """n samples of sin(phase + i*phase_inc) and the wrapped next phase, on
-    ``phase``'s device when it is a tensor, else on ``device``."""
+    """n samples of sin(phase + i*phase_inc) and the wrapped next phase
+    (float64), on ``phase``'s device when it is a tensor, else on
+    ``device``; the phases as :func:`grtpu_torch.ops.fir.phase_ramp` forms
+    them."""
     dev = _phase_device(phase, device)
     ph = phase_ramp(phase, phase_inc, n, dev)
-    return torch.sin(ph), phase_advance(phase, phase_inc * n, dev)
+    return torch.sin(ph), phase_advance(phase, phase_inc, n, dev)
 
 
 def nco_cos(phase, phase_inc: float, n: int, device=None):
     dev = _phase_device(phase, device)
     ph = phase_ramp(phase, phase_inc, n, dev)
-    return torch.cos(ph), phase_advance(phase, phase_inc * n, dev)
+    return torch.cos(ph), phase_advance(phase, phase_inc, n, dev)
 
 
 def nco_exp(phase, phase_inc: float, n: int, device=None):
     dev = _phase_device(phase, device)
     ph = phase_ramp(phase, phase_inc, n, dev)
     return (torch.complex(torch.cos(ph), torch.sin(ph)),
-            phase_advance(phase, phase_inc * n, dev))
+            phase_advance(phase, phase_inc, n, dev))
 
 
 def vco(freq: torch.Tensor, phase, sensitivity: float):

@@ -31,8 +31,13 @@ Precision is a per-call argument (grtpu keeps it in a module global set by
 
 from __future__ import annotations
 
+import math
+from fractions import Fraction
+
 import numpy as np
 import torch
+
+from grtpu_torch.utils.trace import span
 
 # Output-block width along the matmul N dimension (grtpu's MXU lane width;
 # kept so the port sums in the same blocks).
@@ -279,39 +284,68 @@ def fir_filterbank(x: torch.Tensor, tapbank,
 
 
 # -------------------------------------------------------------------- rotator
+TWO_PI = 2 * math.pi
+
+
 def _phase_on(phase, device) -> torch.Tensor:
-    """A carried phase (tensor or host number) as float32 on ``device``; a
+    """A carried phase (tensor or host number) as float64 on ``device``; a
     host number is filled in on the device, with no host-to-device copy, so
     the call stays inside a CUDA-graph capture."""
     if isinstance(phase, torch.Tensor):
-        return phase.to(device=device, dtype=torch.float32)
-    return torch.full((), float(phase), dtype=torch.float32, device=device)
+        return phase.to(device=device, dtype=torch.float64)
+    return torch.full((), float(phase), dtype=torch.float64, device=device)
 
 
-def phase_ramp(phase, step: float, n: int, device) -> torch.Tensor:
-    """float32 ``phase + step * arange(n)``, rounded as grtpu's compiled
-    step rounds it: the integer ramp is widened to float32 and multiplied by
-    the step rounded to float32, and the product is added to the carried
-    phase in one fused multiply-add (one rounding), which is what XLA emits
-    for this expression inside a jitted flowgraph.  The fused operation is
-    taken in float64, where the product of two float32 values is exact.  A
-    long ramp reaches 1e4 rad and more, where one float32 step is 1e-3 rad,
-    so the order of rounding is what the two packages' agreement rests on."""
+def _wrap_step(step, n: int = 1) -> float:
+    """``step * n`` mod 2 pi, in [0, 2 pi), worked out on the host.  A
+    ``fractions.Fraction`` step is a rational number of cycles a sample and
+    is reduced exactly (one rounding, of the reduced phase); a float step is
+    radians a sample, multiplied in float64 and reduced by an exact
+    ``fmod``."""
+    if isinstance(step, Fraction):
+        return float((step * n) % 1) * TWO_PI
+    r = math.fmod(float(step) * n, TWO_PI)
+    return r + TWO_PI if r < 0 else r
+
+
+def phase_ramp(phase, step, n: int, device) -> torch.Tensor:
+    """float32 ``(phase + step * k) mod 2 pi`` for k in [0, n): the phases
+    of a rotator or NCO over one chunk.  The step is reduced mod 2 pi on the
+    host (:func:`_wrap_step`), the ramp formed in float64 and reduced mod 2 pi
+    before the one rounding to float32, so every phase is good to float32's
+    rounding of a number below 2 pi (2.4e-7 rad) however long the ramp.
+    (grtpu forms the ramp in float32 before reducing it: at 6.4e5 rad one
+    float32 step there is 0.0625 rad.)  No host read: it stays valid inside
+    a CUDA-graph capture."""
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    ph = _phase_on(phase, device) + _wrap_step(step) * k
+    return torch.remainder(ph, TWO_PI).to(torch.float32)
+
+
+def phase_advance(phase, step, n: int, device) -> torch.Tensor:
+    """The carried phase after ``n`` samples of ``step``: float64
+    ``(phase + (step * n mod 2 pi)) mod 2 pi``, the product reduced on the
+    host first (:func:`_wrap_step`), so the phase stays in [0, 2 pi) and
+    does not drift from chunk to chunk (a rational ``Fraction`` step of
+    cycles stays exact to float64 rounding over any number of chunks)."""
+    return torch.remainder(_phase_on(phase, device) + _wrap_step(step, n),
+                           TWO_PI)
+
+
+def position_ramp(start: float, step: float, n: int, device) -> torch.Tensor:
+    """float32 ``start + step * k`` for k in [0, n): sample positions, not
+    phases, so nothing is reduced.  Rounded as grtpu's compiled step rounds
+    it: the integer ramp widened to float32 times the step rounded to
+    float32, added to the float32 start in one fused multiply-add (taken in
+    float64, where the product of two float32 values is exact)."""
     k = torch.arange(n, dtype=torch.int32, device=device).to(torch.float64)
-    ph = _phase_on(phase, device)
-    step32 = torch.tensor(float(step), dtype=torch.float32).item()
-    return (ph.to(torch.float64) + step32 * k).to(torch.float32)
+    start32, step32 = float(np.float32(start)), float(np.float32(step))
+    return (start32 + step32 * k).to(torch.float32)
 
 
-def phase_advance(phase, total: float, device) -> torch.Tensor:
-    """float32 ``(phase + total) mod 2 pi`` (floored), the carried phase
-    after a chunk; ``total`` is the host float ``step * n``."""
-    ph = _phase_on(phase, device)
-    return torch.remainder(ph + float(total), 2 * np.pi)
-
-
-def freq_xlating_fir_filter(x: torch.Tensor, taps, phase, phase_inc: float,
-                            decim: int = 1, precision: str = "f32"):
+def freq_xlating_fir_filter(x: torch.Tensor, taps, phase, phase_inc,
+                            decim: int = 1, precision: str = "f32",
+                            fir=None):
     """Frequency-translating decimating FIR
     (gr_freq_xlating_fir_filter_XXX.cc.t:72-123 semantics).
 
@@ -320,15 +354,25 @@ def freq_xlating_fir_filter(x: torch.Tensor, taps, phase, phase_inc: float,
     Here ``taps`` must already be the rotated (complex) taps
     (:func:`rotate_taps`); ``phase`` is the carried rotator phase (radians);
     ``phase_inc`` is radians per *input* sample (= -2*pi*center_freq/fs as
-    in the reference).
+    in the reference), or a ``fractions.Fraction`` of cycles per input
+    sample (-center_freq/fs), which the rotator follows exactly.  The
+    phases are reduced mod 2 pi before they are rounded to float32
+    (:func:`phase_ramp`), as ``gr_rotator`` keeps its phasor to float32's
+    rounding at every output.
 
-    Returns (y, new_phase)."""
-    y = fir_filter(x, taps, decim, precision)
-    nout = y.shape[0]
-    ph = phase_ramp(phase, phase_inc * decim, nout, x.device)
-    rot = torch.complex(torch.cos(ph), torch.sin(ph))
-    new_phase = phase_advance(phase, phase_inc * decim * nout, x.device)
-    return (y * rot).to(torch.complex64), new_phase
+    ``fir``: the filter, ``fir(x, taps, decim)``; by default
+    :func:`fir_filter` at ``precision``.
+
+    Returns (y, new_phase), the phase float64 in [0, 2 pi)."""
+    with span("grtpu.xlate.fir"):
+        y = (fir_filter(x, taps, decim, precision) if fir is None
+             else fir(x, taps, decim))
+    with span("grtpu.xlate.rotate"):
+        nout = y.shape[0]
+        ph = phase_ramp(phase, phase_inc * decim, nout, x.device)
+        rot = torch.complex(torch.cos(ph), torch.sin(ph))
+        new_phase = phase_advance(phase, phase_inc * decim, nout, x.device)
+        return (y * rot).to(torch.complex64), new_phase
 
 
 def rotate_taps(taps, center_freq: float, fs: float) -> np.ndarray:

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _exact_rotator  # noqa: E402
 import grtpu  # noqa: E402
 import grtpu_torch  # noqa: E402
 from grtpu.blocks import analog as ja  # noqa: E402
@@ -90,11 +91,15 @@ WAVEFORMS = [("cos", np.float32), ("sin", np.float32), ("square", np.float32),
 @pytest.mark.parametrize("chunk", [1024, 4096])
 @pytest.mark.parametrize("waveform,dtype", WAVEFORMS,
                          ids=[f"{w}-{np.dtype(d).name}" for w, d in WAVEFORMS])
-def test_sig_source(waveform, dtype, chunk):
-    """The NCO phase is a float32 ramp, carried and wrapped each chunk, in
-    grtpu's rounding: the waveforms agree to 1e-5 over 16,384 samples (the
-    discontinuous ones away from their edges, where a last-bit phase
-    difference would flip a whole step) and the carried phase to 1e-5 rad."""
+def test_sig_source(waveform, dtype, chunk, monkeypatch):
+    """The NCO's phases reduced mod 2 pi before they are rounded, the phase
+    carried and wrapped each chunk: held to grtpu with its float32 ramp (to
+    660 rad at chunk 4,096, where a float32 step is 6e-5 rad) reduced
+    before rounding as well (``_exact_rotator``), the waveforms agree to
+    1e-5 over 16,384 samples (the discontinuous ones away from their edges,
+    where a last-bit phase difference would flip a whole step) and the
+    carried phase to 1e-5 rad."""
+    _exact_rotator.install(monkeypatch)
     steps = 16384 // chunk
     ref, got, jex, tex = both(
         lambda m, lib: m.SigSource(48000.0, waveform, 1234.5, 0.8, 0.1,

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _exact_rotator  # noqa: E402
 import grtpu  # noqa: E402
 from grtpu.digital import generic_mod_demod as jgm  # noqa: E402
 from grtpu.models import channel as jch  # noqa: E402
@@ -60,7 +61,10 @@ def signal(n, seed):
     dict(taps=np.array([1.0, 0.0, 0.4 + 0.2j], np.complex64)),
     dict(frequency_offset=-0.003, taps=np.array([0.9, 0.3j], np.complex64))],
     ids=["cfo", "multipath", "both"])
-def test_channel_model_without_noise(kw):
+def test_channel_model_without_noise(kw, monkeypatch):
+    """grtpu's rotator ramp reduced before rounding, as the port's is
+    (``_exact_rotator``)."""
+    _exact_rotator.install(monkeypatch)
     x = signal(2048, 1)
     ys = [out(executor(k, chain(k, mod.ChannelModel(**kw)), 512).run(x))
           for k, mod in (("jax", jch), ("torch", tch))]

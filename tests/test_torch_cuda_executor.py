@@ -121,6 +121,46 @@ def test_tuner_wbfm(dev):
     assert_equal_runs(want, got)
 
 
+def test_tuner_on_the_kernel_counts_its_ccc_launches(dev):
+    """Config #1 with the tuner on the hand kernel's complex-taps mode:
+    the captured runs equal the eager ones bit for bit, each chunk is one
+    ccc launch of the decimating kernel, counted under fir_decim_cc too, and
+    the carried phase after the runs equals the exact one (a centre of a
+    sixth of the rate, whose phase a chunk's end does not bring back to 0)."""
+    from fractions import Fraction
+
+    taps = firdes.low_pass(1.0, 2.4e6, 100e3, 50e3)
+    r = np.random.RandomState(3)
+    n = 8 * 131072
+    x = np.exp(2j * np.pi * (0.1953125 * np.arange(n)
+                             + np.cumsum(0.02 * r.randn(n)))).astype(np.complex64)
+
+    tuners = []
+
+    def build():
+        tuners.append(FreqXlatingFirFilter(8, taps, 400e3, 2.4e6,
+                                           impl="kernel"))
+        return chain_graph([tuners[-1], WfmRcv(256e3, 8, impl="kernel")],
+                           torch.complex64)
+
+    before = dict(cuda_fir.launches)
+    want, got, loop = both(build, torch.from_numpy(x).to(dev), 131072, dev)
+    assert_equal_runs(want, got)
+    moved = {k: cuda_fir.launches[k] - before[k] for k in before}
+    # 8 chunks a run, 2 runs, eager and device_loop: the tuner's and the
+    # audio FIR's launches, the de-emphasis', and the tuner's again as ccc
+    assert moved["fir_decim_cc"] == 32
+    assert moved["fir_decim_mma_fwd"] == 64
+    assert moved["iir1_fwd"] == 32
+    assert sum(moved.values()) == 128
+    phase = loop.state["blocks"][str(tuners[-1].uid)]
+    turns = (-Fraction(400e3) / Fraction(2.4e6) * 2 * n) % 1
+    assert turns != 0
+    assert phase.dtype == torch.float64
+    assert abs(math.remainder(float(phase) - 2 * math.pi * float(turns),
+                              2 * math.pi)) < 1e-9
+
+
 def test_pfb_channelizer_graph(dev):
     r = np.random.RandomState(2)
     x = torch.from_numpy((r.randn(1 << 20) + 1j * r.randn(1 << 20))

@@ -191,7 +191,7 @@ def test_launch_counts(dev):
                      "fir_decim_fwd": 1, "fir_decim_mma_fwd": 1,
                      "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0,
                      "viterbi_fwd": 0, "dfe_feedback_fwd": 0,
-                     "iir1_fwd": 0}
+                     "iir1_fwd": 0, "fir_decim_cc": 1}
 
 
 ODD_DECIM_CASES = [
@@ -560,10 +560,12 @@ def test_complex_wrappers_one_launch(dev, sig, d):
     fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
     route = cf._route("bf16x3", d, k, c, n, cplx=cplx)
     name = "fir_decim_mma_fwd" if route == "decim_mma" else "fir_decim_fwd"
+    # a ccc call's launch is counted under fir_decim_cc too
+    mode = {"fir_decim_cc": 1} if cplx == cf.CCC else {}
     before = dict(cf.launches)
     got = fn(x, ts, d)
     assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
-            if cf.launches[nm] != before[nm]} == {name: 1}
+            if cf.launches[nm] != before[nm]} == {name: 1, **mode}
     assert torch.equal(fn(x, ts.cpu().numpy(), d), got)
     ref = cf.fir_decim_cplx_ref(x, ts, d, 0, n, "bf16x3", cplx)
     assert rel(got, ref) < TOL["bf16x3"]
@@ -577,7 +579,7 @@ def test_complex_wrappers_one_launch(dev, sig, d):
             before = dict(cf.launches)
             y1 = fn(xs, ts, 1, precision=precision)
             assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
-                    if cf.launches[nm] != before[nm]} == {name: 1}
+                    if cf.launches[nm] != before[nm]} == {name: 1, **mode}
             assert rel(y1, cf.fir_decim_cplx_ref(
                 xs, ts, 1, 0, nn, precision, cplx)) < TOL[precision]
             assert torch.equal(fn(xs, ts.cpu().numpy(), 1,
@@ -602,11 +604,12 @@ def test_complex_wrappers_planes_tapsets(dev, sig, precision, k, d, c, g, n):
     x = crandn(dev, c, n * d + k - 1, seed=k + c)
     ts = complex_taps(dev, cplx, g, k, seed=k + g)
     fn = cf.fir_decim_c if sig == "ccf" else cf.fir_decim_cc
+    mode = {"fir_decim_cc": 1} if cplx == cf.CCC else {}
     before = dict(cf.launches)
     got = fn(x, ts, d, precision=precision)
     torch.cuda.synchronize()
     assert {nm: cf.launches[nm] - before[nm] for nm in cf.launches
-            if cf.launches[nm] != before[nm]} == {name: 1}
+            if cf.launches[nm] != before[nm]} == {name: 1, **mode}
     assert got.dtype == torch.complex64 and got.shape == (c, n)
     forced = cf._decim_complex(x, ts, d, precision, cplx,
                                _force_planes=True)
@@ -677,8 +680,8 @@ def test_complex_modes_refuse_a_bf16_stream(dev):
 def test_firfilter_ccc_graph(dev, decim):
     """FirFilter("ccc", impl="kernel") in a graph, decimating and at
     decimation 1: one fir_decim_mma_fwd launch a chunk in both run modes,
-    device_loop torch.equal to eager, and within bf16x3's tolerance of
-    impl="mxu"."""
+    counted under fir_decim_cc too, device_loop torch.equal to eager, and
+    within bf16x3's tolerance of impl="mxu"."""
     from grtpu_torch import Graph, StreamExecutor
     from grtpu_torch.runtime.block import Port
     from grtpu_torch.blocks.filter import FirFilter
@@ -705,8 +708,8 @@ def test_firfilter_ccc_graph(dev, decim):
     loop, n_loop = run("kernel", True)
     assert torch.equal(eager, loop)
     for n in (n_eager, n_loop):
-        assert sum(n.values()) == nchunks
-        assert n["fir_decim_mma_fwd"] == nchunks
+        assert sum(n.values()) == 2 * nchunks
+        assert n["fir_decim_mma_fwd"] == n["fir_decim_cc"] == nchunks
     mxu, n_mxu = run("mxu")
     assert sum(n_mxu.values()) == 0
     assert rel(eager, mxu) < TOL["bf16x3"]

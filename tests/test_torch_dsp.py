@@ -171,28 +171,47 @@ def test_iir_init_state_shapes():
 
 
 # ----------------------------------------- rotator, NCO, VCO, phase mod, DC
+def wrapped(a, b):
+    """|a - b| over the circle, radians."""
+    d = np.remainder(np.float64(a) - np.float64(b) + np.pi, 2 * np.pi)
+    return abs(float(d) - np.pi)
+
+
 @pytest.mark.parametrize("n", [257, 16384])
 def test_rotate(n):
-    """float32 phase ramp rounded as grtpu's compiled step rounds it (grtpu
-    under ``jax.jit``, as its executor runs it): at 16,384 samples the ramp
-    reaches 1.2e4 rad (one float32 step there is 1e-3 rad), and the two
-    still agree to 1e-5."""
+    """The phases reduced mod 2 pi in float64 before the float32 cos / sin,
+    held to the float64 rotation at 1e-5 and the carried phase (float64)
+    to 1e-6 rad.  Where grtpu's float32 ramp is accurate (257 samples, to
+    189 rad) the port also agrees with grtpu (under ``jax.jit``, as its
+    executor runs it) to 1e-5; at 16,384 samples grtpu's ramp reaches 1.2e4
+    rad, where a float32 step is 1e-3 rad, and grtpu is the one off."""
     x = fm_iq(n, 20)
     ref, rph = jax.jit(lambda v, ph: jd.rotate(v, ph, 0.7353))(
         jnp.asarray(x), jnp.float32(0.5))
     got, gph = td.rotate(T(x), torch.tensor(0.5), 0.7353)
-    assert got.dtype == torch.complex64
-    assert rel(got.numpy(), ref) < 1e-5
-    assert abs(float(gph) - float(rph)) < 1e-6
+    k = np.arange(n, dtype=np.float64)
+    exact = x.astype(np.complex128) * np.exp(1j * (0.5 + 0.7353 * k))
+    assert got.dtype == torch.complex64 and gph.dtype == torch.float64
+    assert rel(got.numpy(), exact) < 1e-5
+    assert wrapped(gph, 0.5 + 0.7353 * n) < 1e-6
+    if n == 257:
+        assert rel(got.numpy(), ref) < 1e-5
+    else:
+        assert rel(np.asarray(ref), exact) > 1e-4
 
 
 @pytest.mark.parametrize("name", ["nco_sin", "nco_cos", "nco_exp"])
 def test_nco(name):
-    ref, rph = jax.jit(lambda ph: getattr(jd, name)(ph, -0.3111, 8192))(
-        jnp.float32(2.0))
+    """8,192 samples of the NCO (to 2.5e3 rad, where a float32 step is 2.4e-4
+    rad: grtpu's float32 ramp is off by more than the 1e-5 tolerance there)
+    held to the float64 waveform to 1e-5 and the carried phase to 1e-6
+    rad."""
     got, gph = getattr(td, name)(torch.tensor(2.0), -0.3111, 8192)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
-    assert abs(float(gph) - float(rph)) < 1e-6
+    ph = 2.0 - 0.3111 * np.arange(8192, dtype=np.float64)
+    exact = {"nco_sin": np.sin, "nco_cos": np.cos,
+             "nco_exp": lambda p: np.exp(1j * p)}[name](ph)
+    np.testing.assert_allclose(got.numpy(), exact, atol=1e-5)
+    assert wrapped(gph, 2.0 - 0.3111 * 8192) < 1e-6
     # a plain number as the phase needs a device: the card unless named
     got2, _ = getattr(td, name)(2.0, -0.3111, 8192, device="cpu")
     np.testing.assert_array_equal(got2.numpy(), got.numpy())

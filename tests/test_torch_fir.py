@@ -188,25 +188,34 @@ def test_rotate_taps_identical():
 
 @pytest.mark.parametrize("decim,n", [(1, 512), (8, 4096), (8, 32768)])
 def test_freq_xlating_fir_filter(decim, n):
-    """The tuner: the FIR to 1e-5, and the float32 rotator ramp rounded as
-    grtpu's compiled step rounds it (grtpu runs under ``jax.jit``, as its
-    executor runs it: XLA then fuses the ramp's multiply-add) — at 32,768
-    samples the ramp reaches ~4e4 rad, where one float32 step is 4e-3 rad,
-    so an order that rounds differently would show at 1e-3.  The carried
-    phase agrees to 1e-6 rad."""
+    """The tuner.  The FIR is grtpu's: with the rotator's step at 0 the two
+    agree to 1e-5.  The rotator is held to the float64 tuner (the rotated
+    taps' convolution in float64, output i turned by exp(j (1.25 + inc d
+    i))) to 1e-5 and the carried phase (float64) to 1e-6 rad.  grtpu forms
+    the ramp in float32 (to 6e2, 5e3 and 4e4 rad here, where a float32 step
+    is 6e-5 to 4e-3 rad), so it is no reference for the rotator at these
+    lengths."""
     rng = np.random.RandomState(42)
     taps = rng.randn(41).astype(np.float32) / 41
     rt = jfir.rotate_taps(taps, 400e3, 2.048e6)
     inc = -2 * np.pi * 400e3 / 2.048e6
     x = _x(rng, (n + 40,), True)
     ref, rph = jax.jit(lambda v, ph: jfir.freq_xlating_fir_filter(
-        v, rt, ph, inc, decim))(jnp.asarray(x), jnp.float32(1.25))
+        v, rt, ph, 0.0, decim))(jnp.asarray(x), jnp.float32(1.25))
+    got, gph = tfir.freq_xlating_fir_filter(
+        torch.from_numpy(x), rt, torch.tensor(1.25), 0.0, decim)
+    assert rel(got.numpy(), ref) < 1e-5
     got, gph = tfir.freq_xlating_fir_filter(
         torch.from_numpy(x), rt, torch.tensor(1.25), inc, decim)
     assert got.dtype == torch.complex64 and got.shape == (n // decim,)
-    assert rel(got.numpy(), ref) < 1e-5
-    assert gph.dtype == torch.float32
-    assert abs(float(gph) - float(rph)) < 1e-6
+    y = np.convolve(x.astype(np.complex128), rt.astype(np.complex128),
+                    "valid")[::decim]
+    i = np.arange(n // decim, dtype=np.float64)
+    exact = y * np.exp(1j * (1.25 + inc * decim * i))
+    assert rel(got.numpy(), exact) < 1e-5
+    assert gph.dtype == torch.float64
+    d = np.remainder(float(gph) - (1.25 + inc * n) + np.pi, 2 * np.pi)
+    assert abs(d - np.pi) < 1e-6
 
 
 @pytest.mark.parametrize("precision", ["bf16x3", "bf16"])

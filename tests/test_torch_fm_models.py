@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _exact_rotator  # noqa: E402
 import grtpu  # noqa: E402
 import grtpu_torch  # noqa: E402
 from grtpu.blocks import filter as jfilt  # noqa: E402
@@ -97,7 +98,10 @@ def fm_iq(n, rate, dev, f=1000.0, seed=0):
 
 # ------------------------------------------------- config #1: tuner -> WBFM
 @pytest.mark.parametrize("chunk", [8192, 16384])
-def test_tuner_wfm_rcv_matches_grtpu(chunk):
+def test_tuner_wfm_rcv_matches_grtpu(chunk, monkeypatch):
+    """Held to grtpu with its rotator's float32 ramp (to 2e4 rad at chunk
+    16,384) reduced before rounding (``_exact_rotator``)."""
+    _exact_rotator.install(monkeypatch)
     x = wideband_capture(1 << 15)
     ref = run_chain("j", tuner_wfm, x, chunk)
     got = run_chain("t", tuner_wfm, x, chunk)
@@ -141,10 +145,12 @@ def test_tuner_wfm_rcv_kernel_path_matches_grtpu_pallas(monkeypatch):
 @pytest.mark.parametrize("writer,reader", [("j", "t"), ("t", "j")],
                          ids=["grtpu-to-port", "port-to-grtpu"])
 def test_tuner_wfm_rcv_checkpoint_moves_between_packages(tmp_path, writer,
-                                                         reader):
+                                                         reader, monkeypatch):
     """Stopped mid-stream in one package and resumed in the other (the
     rotator's phase, the halo tails, the de-emphasis state), the graph
-    equals the uninterrupted run."""
+    equals the uninterrupted run.  grtpu runs with its rotator's ramp
+    reduced before rounding (``_exact_rotator``), as the port's is."""
+    _exact_rotator.install(monkeypatch)
     chunk = 8192
     x = wideband_capture(4 * chunk, seed=2)
     half = 2 * chunk
@@ -351,12 +357,13 @@ def test_models_package_exports():
         tfm.NbfmRx(16e3, 50e3)
 
 
-def test_tuner_snr_is_the_chains_own_on_chip_smokes_capture():
+def test_tuner_snr_is_the_chains_own_on_chip_smokes_capture(monkeypatch):
     """chip_smoke's phase 6a reads 39.32 dB of audio SNR on the tuner path
     against 57.58 on the main path.  On a shortened capture of the same
-    recipe (chip_smoke.wideband_capture, 2^18 samples) grtpu and the port
-    give the same audio (1e-5) and so the same SNR: the figure is the
-    chain's, not a fault of the port.  It is the reference's sampling that
+    recipe (chip_smoke.wideband_capture, 2^18 samples) grtpu (its rotator's
+    ramp reduced before rounding, ``_exact_rotator``) and the port give the
+    same audio (1e-5) and so the same SNR: the figure is the chain's, not a
+    fault of the port.  It is the reference's sampling that
     sets it: after the tuner's decimation by 8 the discriminator measures
     the phase step over 8 capture samples, centred 3.5 samples before the
     capture grid the reference is taken on; against the message as the
@@ -365,6 +372,7 @@ def test_tuner_snr_is_the_chains_own_on_chip_smokes_capture():
     import importlib.util
     from pathlib import Path
 
+    _exact_rotator.install(monkeypatch)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _exact_rotator  # noqa: E402
 import grtpu  # noqa: E402
 import grtpu_torch  # noqa: E402
 from grtpu.blocks import gengen as jgen  # noqa: E402
@@ -124,10 +125,12 @@ def dial_tone_spec():
     return yaml.safe_load((REPO / "examples" / "dial_tone.yml").read_text())
 
 
-def test_dial_tone_json_spec_equals_grtpu(tmp_path):
+def test_dial_tone_json_spec_equals_grtpu(tmp_path, monkeypatch):
     """examples/dial_tone.yml as JSON: the same blocks, dtypes and output.
     The tones agree to 1e-6 (XLA's and torch's float32 sin differ in the
-    last bit, 6.7e-8 at most here)."""
+    last bit, 6.7e-8 at most here), grtpu's float32 ramps reduced before
+    rounding as the port's are (``_exact_rotator``)."""
+    _exact_rotator.install(monkeypatch)
     path = tmp_path / "dial_tone.json"
     path.write_text(json.dumps(dial_tone_spec()))
     spec_t = tflow.load_flowgraph(str(path))
@@ -210,13 +213,17 @@ def wbfm_spec(cap, impl=None):
 
 @pytest.fixture(scope="module")
 def wbfm(tmp_path_factory):
-    """The 2^16-sample capture on disk and grtpu's audio from the spec."""
+    """The 2^16-sample capture on disk and grtpu's audio from the spec,
+    its tuner's ramp (to 2e4 rad a chunk) reduced before rounding as the
+    port's is (``_exact_rotator``)."""
     d = tmp_path_factory.mktemp("wbfm")
     cap = str(d / "cap.cfile")
     tfile.save_capture(cap, wbfm_capture())
-    g, byid = jflow.FlowgraphSpec.from_dict(wbfm_spec(cap)).build()
-    grtpu.StreamExecutor(g, chunk_size=16384, donate=False).run(steps=4)
-    return cap, np.asarray(byid["out"].captured[0])
+    with pytest.MonkeyPatch.context() as mp:
+        _exact_rotator.install(mp)
+        g, byid = jflow.FlowgraphSpec.from_dict(wbfm_spec(cap)).build()
+        grtpu.StreamExecutor(g, chunk_size=16384, donate=False).run(steps=4)
+        return cap, np.asarray(byid["out"].captured[0])
 
 
 @pytest.mark.parametrize("impl,tol", [(None, 1e-5), ("kernel", 1e-4)],
@@ -307,7 +314,10 @@ def tones_grc(tmp_path):
 
 
 @pytest.mark.parametrize("scale", [None, 2], ids=["file", "override"])
-def test_grc_tones_equal_grtpu(tmp_path, scale):
+def test_grc_tones_equal_grtpu(tmp_path, scale, monkeypatch):
+    """grtpu's float32 ramps reduced before rounding as the port's are
+    (``_exact_rotator``)."""
+    _exact_rotator.install(monkeypatch)
     path = tones_grc(tmp_path)
     over = None if scale is None else {"scale": scale}
     outs = {}
