@@ -141,7 +141,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     precision below the configuration's, in the program's place for the
     check (the control's readings).  The result's ``host`` object records
     where the process ran (``hostrecord.describe``) and ``us_chunk``, the
-    host's mean microseconds a chunk over the window's untraced requests."""
+    host's mean microseconds a chunk over the window's untraced requests;
+    ``check_s`` the wall seconds of the check (the reference's ``compare``,
+    and its ``control`` where it runs)."""
     bench, cell, cfg, mix, limits = load_cell(root, workload)
     overrides = overrides or {}
     cfg = {**cfg, **overrides.get("config", {})}
@@ -222,9 +224,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    t_check = time.perf_counter()
     if program_control:
         outputs = reference.control(cfg, mix, sources, plan, sorted(outputs), r)
     numbers = reference.compare(cfg, mix, sources, plan, outputs, r)
+    check_s = time.perf_counter() - t_check
     checks = _checks(numbers, limits)
     correct = (failed == 0 and n_req > 0
                and all(c["value"] <= c["limit"] for c in checks.values()))
@@ -270,5 +274,6 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         **hostrecord.describe(torch.cuda.get_device_properties(0) if cuda else None),
         "us_chunk": module("metrics", "host_us_chunk").read(
             {"entry_s": untraced_entry_s, "mix": mix})}
+    result["check_s"] = check_s
     result["checks"] = checks
     return result

@@ -52,7 +52,8 @@ def main(argv=None) -> int:
                 readings[side].setdefault(k, []).append(v)
             print(json.dumps({"side": side, "seed": seed, "correct": res["correct"],
                               "attempted": res["attempted"], "numbers": nums,
-                              "metrics": res["metrics"]}), flush=True)
+                              "metrics": res["metrics"], "check_s": res["check_s"]}),
+                  flush=True)
             del res
             gc.collect()
             torch.cuda.empty_cache()

@@ -4,10 +4,11 @@
 
 from the root of a checkout.  The last line of standard output is one JSON
 object (``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
-with ``--trace 1`` also ``breakdown``, and last ``checks``: each number
-compared beside its limit); the last lines of standard error give the same
-numbers.  With ``--trace 0`` the metrics are the cell's end-to-end metrics,
-with ``--trace 1`` its per-layer metrics.  The run fails, printing no
+with ``--trace 1`` also ``breakdown``, then ``host`` and ``check_s``, the
+seconds the check took, and last ``checks``: each number compared beside
+its limit); the last lines of standard error give the same numbers.  With
+``--trace 0`` the metrics are the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics.  The run fails, printing no
 result, where there is no CUDA device or fewer than the cell asks for,
 and where JAX or the JAX package is loaded once the window has closed.
 """
@@ -74,11 +75,12 @@ def main(argv=None) -> int:
 
 
 def report(result: dict):
-    """Where the run ran, then the numbers compared, each beside its limit,
-    as the last lines of standard error; the result as the last line of
-    standard output."""
+    """Where the run ran, the check's seconds, then the numbers compared,
+    each beside its limit, as the last lines of standard error; the result
+    as the last line of standard output."""
     print(f"radiobench: host {json.dumps(result['host'])}", file=sys.stderr,
           flush=True)
+    print(f"radiobench: check_s {result['check_s']!r}", file=sys.stderr, flush=True)
     for name, c in result["checks"].items():
         print(f"check {name} = {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr, flush=True)

@@ -36,7 +36,8 @@ def test_last_line_keys_and_checks_last(bench_root):
     lines = err.getvalue().strip().splitlines()
     tail = lines[-len(line["checks"]):]
     assert [t.split()[1] for t in tail] == list(line["checks"])
-    assert json.loads(lines[-len(tail) - 1].split(" host ", 1)[1]) == line["host"]
+    assert float(lines[-len(tail) - 1].split(" check_s ", 1)[1]) == line["check_s"] > 0
+    assert json.loads(lines[-len(tail) - 2].split(" host ", 1)[1]) == line["host"]
 
 
 def test_refuses_without_a_card(tmp_path):
@@ -117,7 +118,7 @@ def test_a_cell_is_added_from_new_files_alone(tmp_path):
     assert p.returncode == 0, p.stderr[-2000:]
     res = json.loads(p.stdout.strip().splitlines()[-1])
     assert res["correct"] is True and res["attempted"] > 0
-    assert set(res["host"]) == HOST_KEYS and list(res)[-2:] == ["host", "checks"]
+    assert set(res["host"]) == HOST_KEYS and list(res)[-3:] == ["host", "check_s", "checks"]
     assert res["host"]["us_chunk"] > 0
     assert set(res["host"]["cpus_allowed"]) == os.sched_getaffinity(0)
     after = _digests(tmp_path / "radiobench")
