@@ -9,8 +9,8 @@ Phases (each raises on failure; nothing is caught):
   1. Require a CUDA device, print its name and power limit, pin float32
      matmuls and convolutions to full precision (no TF32).
   2. Build the Hopper kernels from grtpu_torch/csrc (the FIR kernels, the
-     two recursion kernels and the first-order IIR: one nvcc per source,
-     six started together, sm_90a).
+     two recursion kernels, the first-order IIR and the M&M clock
+     recovery: one nvcc per source, seven started together, sm_90a).
   3. Hold each kernel against its plain PyTorch twin on the card, at the
      shapes the main path and the headline workload give it, and time both.
      Each case prints its bound (the larger of useful FLOP over the peak its
@@ -47,7 +47,15 @@ Phases (each raises on failure; nothing is caught):
      outside a CUDA-graph capture (the de-emphasis of every WBFM path
      below, at that path's shape) are held to the plain form on the CPU
      too (hold_iir1); the run ends by listing the shapes held, and phase
-     4's must be among them.
+     4's must be among them.  The M&M clock recovery's mm_fwd (3c) at the
+     DMR stream cell's chunk (4,320 samples and the block's 20 of history,
+     radiobench's dmr_4fsk48k.stream loop) and at one chunk over the
+     largest tile that shared memory holds (staged in tiles): one launch a
+     call, torch.equal to the plain loop (loops._mm_exact) on the card in
+     ys, n_valid and the state, timed back to back and replayed from a CUDA
+     graph, beside the plain loop's replayed time (at the chunk) and the
+     latency floor of its dependent steps (MM_STEP_FLOOR_NS a symbol; a
+     request of the cell is 1,728 steps).
   4. Drive the main path: the WBFM receive chain (FM modulator -> quadrature
      demod -> 8x decimating FIR on the kernel -> de-emphasis) through Graph
      and StreamExecutor on the card, ~16 s of one station, checked for
@@ -57,8 +65,9 @@ Phases (each raises on failure; nothing is caught):
      taps) through fir_cascade: the explicit cascade in f32 and bf16x3 and
      the composed 4097-tap filter in f32, in bf16x3 and on the bf16-resident
      stream.  Kernel launch counts are read around this phase only.
-  5. Drive the DMR 4FSK receive slice on the card (it reaches no hand
-     kernel; its matched filter is a float32 Toeplitz matmul):
+  5. Drive the DMR 4FSK receive slice on the card (its matched filter is a
+     float32 Toeplitz matmul; the stream's clock recovery is the mm_fwd
+     kernel, which the phase must launch):
      a. the burst bank at full width (benchmarks/dmr_bench.py: 128 channels
         x 110,592 samples, 10 samples/symbol, 110-tap RRC) through
         Fsk4Modem.demodulate_burst_bank; each channel carries back-to-back
@@ -1092,6 +1101,95 @@ def hold_iir1(torch):
 
     cuda_iir.iir1_fwd = checked
     return held
+
+
+MM_CHUNK = 4320       # radiobench's dmr_4fsk48k.stream chunk
+MM_ARGS = (float(DMR_SPS), 0.25 * 0.05 ** 2, 0.05, 0.005)   # its loop
+MM_REQUEST_STEPS = 1728   # symbols of its 360 ms request: one dependent chain
+# The least a step of mm_clock.cu's walk can take: its dependent chain, a
+# shared-memory read of the row and window (33 cycles), the dot's 8 fused
+# multiply-adds and the update's 11 float32 operations (4 each), floorf
+# (19) and the row's index (14), at the latencies a dependent-chain
+# microbenchmark reads on an H100 SXM, at its 1,980 MHz.
+MM_STEP_FLOOR_NS = (33 + 8 * 4 + 11 * 4 + 19 + 14) / 1.98
+
+
+def mm_signal(n: int, seed: int) -> np.ndarray:
+    """A 4-level stream at DMR_SPS samples a symbol, each symbol's level
+    ramped into the next, with noise: the matched filter's output as the
+    clock recovery sees it."""
+    r = np.random.RandomState(seed)
+    nsym = n // DMR_SPS + 2
+    sym = r.choice([-1.0, -1 / 3, 1 / 3, 1.0], nsym)
+    pos = np.arange(n) / DMR_SPS
+    k = pos.astype(int)
+    v = (1 - (pos - k)) * sym[k] + (pos - k) * sym[k + 1]
+    return (v + 0.05 * r.randn(n)).astype(np.float32)
+
+
+def run_mm(torch, cf):
+    """Phase 3c: mm_fwd at the stream cell's chunk and at one chunk over
+    the largest tile: one launch a call, torch.equal to the plain loop on
+    the card, timed back to back and replayed, beside the plain loop's
+    replayed time and the steps' latency floor.  Returns the kernels
+    line's row, at the cell's chunk."""
+    from grtpu_torch.digital import loops
+    from grtpu_torch.ops import cuda_mm
+
+    dev = torch.device("cuda")
+    smi = gpu_line()
+    lead = 8 + DMR_SPS + 3 - 1      # ClockRecoveryMMFF's history, less one
+    row = None
+    for label, n in (("the cell's chunk", MM_CHUNK + lead),
+                     ("one chunk over the largest tile",
+                      cuda_mm.max_tile(False) + MM_CHUNK + lead)):
+        x = torch.from_numpy(mm_signal(n, 26)).to(dev)
+        state = loops.mm_init_state(DMR_SPS, 0.5, device=dev)
+
+        def run():
+            return loops.clock_recovery_mm_ff(x, state, *MM_ARGS)
+
+        def plain():
+            return loops._mm_exact(x, state, *MM_ARGS, clip_err=False)
+
+        before = dict(cf.launches)
+        got = run()
+        launched = {nm: cf.launches[nm] - before[nm] for nm in cf.launches
+                    if cf.launches[nm] != before[nm]}
+        if launched != {"mm_fwd": 1}:
+            fail(f"mm_fwd at {n} samples: one call launched {launched}")
+        want = plain()
+        torch.cuda.synchronize()
+        pairs = list(zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])))
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+            fail(f"mm_fwd at {n} samples is not the plain loop's bit for bit")
+        symbols = int(got[1])
+        ms = launch_ms(run)
+        g_ms = graph_ms(run, 20)
+        g_plain = graph_ms(plain, 1) if n == MM_CHUNK + lead else None
+        floor_ms = MM_STEP_FLOOR_NS * symbols * 1e-6
+        plain_txt = (f"in_a_graph plain_ms={g_plain:.4f}" if g_plain
+                     else "plain not timed")
+        print(f"kernel mm {label}: {n} samples, {symbols} symbols, "
+              f"{len(got[0])} slots, mm_fwd launches_a_call=1, torch.equal "
+              f"to the plain loop on the card in ys, n_valid and the state; "
+              f"kernel_ms={ms:.4f} in_a_graph kernel_ms={g_ms:.4f} "
+              f"({g_ms * 1e6 / symbols:.1f} ns a symbol; "
+              f"{g_ms * MM_REQUEST_STEPS / symbols:.4f} ms for the cell's "
+              f"{MM_REQUEST_STEPS} steps a request) {plain_txt} "
+              f"latency_floor_ms={floor_ms:.4f} ({MM_STEP_FLOOR_NS:.1f} ns a "
+              f"step) share_of_floor (graph)={floor_ms / g_ms:.3f}; {smi}",
+              flush=True)
+        if row is None:
+            row = {"name": "mm_fwd", "route": "cuda",
+                   "source": "grtpu_torch/csrc/mm_clock.cu",
+                   "replaces": "grtpu/digital/loops.py _mm_exact (a lax.scan; "
+                               "no Pallas kernel)",
+                   "launches": None, "max_abs_err": 0.0, "ms": ms,
+                   "graph_ms": g_ms, "plain_ms": g_plain,
+                   "bound_ms": floor_ms, "bound_by": "latency",
+                   "library_ms": None}
+    return row
 
 
 def wbfm_graph(torch, kernel: bool):
@@ -5163,17 +5261,21 @@ def main() -> int:
     rows, headline = check_kernels(torch, cf, fir, firdes, _build)
     iir1_row = run_iir1(torch, cf)
     iir1_held = hold_iir1(torch)
+    mm_row = run_mm(torch, cf)
 
     # phase 4: the main path
     counts, rate = run_main_path(torch, cf, headline)
 
-    # phase 5: the DMR slice; it reaches no hand kernel, so its launch
-    # counts are read and printed, not required
+    # phase 5: the DMR slice; the stream's clock recovery must launch
+    # mm_fwd, and nothing else is required
     for name in cf.launches:
         cf.launches[name] = 0
     run_dmr_bank(torch)
     run_dmr_stream(torch)
-    print(f"DMR path launches: {dict(cf.launches)}")
+    dmr_launches = dict(cf.launches)
+    print(f"DMR path launches: {dmr_launches}")
+    if not dmr_launches["mm_fwd"]:
+        fail("the DMR stream's clock recovery did not launch mm_fwd")
 
     # phase 6: config #1 in full (tuner -> WBFM) and the FM family; its own
     # launch counts, zeroed before and read after
@@ -5295,6 +5397,9 @@ def main() -> int:
     kernels.append(dict(iir1_row, launches=counts["iir1_fwd"]))
     print(f"reported for iir1_fwd: phase 4's chunk, 1 x {IIR1_CHUNK} (phase "
           f"3b); launches: phase 4's")
+    kernels.append(dict(mm_row, launches=dmr_launches["mm_fwd"]))
+    print("reported for mm_fwd: the stream cell's chunk (phase 3c); "
+          "launches: phase 5's")
     print(f"iir1_fwd held to its plain form on the CPU outside captures "
           f"(shape, dtype, nff, K: calls): {iir1_held}")
     if not any(key[:3] == ((IIR1_CHUNK,), "float32", 2) and calls == IIR1_HELD

@@ -27,6 +27,8 @@ those gathers, which select the same values exactly.
 Three M&M forms, as in grtpu:
   * exact (``clock_recovery_mm_ff/cc``): variable rate, ``max_out`` symbol
     slots with a valid count, the state frozen past the end of the input;
+    on the card one launch of the ``mm_fwd`` hand kernel
+    (:mod:`grtpu_torch.ops.cuda_mm`), on the CPU the loop :func:`_mm_exact`;
   * windowed (``clock_recovery_mm_{ff,cc}_windowed``): one symbol per
     nominal period, the timing drift carried as ``rel``; one stream or a
     batch, the symbol loop through ``step_scan`` (graph replays on the
@@ -47,7 +49,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from grtpu_torch.ops import dsp
+from grtpu_torch.ops import cuda_mm, dsp
 from grtpu_torch.ops.mmse_interp import (NSTEPS, NTAPS, bank_on,
                                          interpolate_point, scan_dot)
 from grtpu_torch.utils.device import resolve
@@ -225,6 +227,19 @@ def _mm_exact(x, state: MMState, omega_nominal, gain_omega, gain_mu,
     return torch.stack(ys), n_valid, MMState(mu, omega, base, last)
 
 
+def _mm(x, state: MMState, omega_nominal, gain_omega, gain_mu,
+        omega_relative_limit, cc):
+    """The exact M&M: one launch of the ``mm_fwd`` kernel on a CUDA tensor
+    (:mod:`grtpu_torch.ops.cuda_mm`, bit for bit the plain loop), the plain
+    loop :func:`_mm_exact` on a CPU tensor."""
+    if x.device.type == "cuda":
+        ys, n_valid, *st = cuda_mm.mm_fwd(x, *state, omega_nominal, gain_omega,
+                                          gain_mu, omega_relative_limit, cc)
+        return ys, n_valid, MMState(*st)
+    return _mm_exact(x, state, omega_nominal, gain_omega, gain_mu,
+                     omega_relative_limit, clip_err=cc)
+
+
 def clock_recovery_mm_ff(
     x: torch.Tensor, state: MMState, omega_nominal: float,
     gain_omega: float, gain_mu: float, omega_relative_limit: float = 0.001,
@@ -235,9 +250,10 @@ def clock_recovery_mm_ff(
     x: n_in + lookahead samples.  Returns (y_padded, n_valid, new_state):
     ``max_out`` symbol slots, a 0-d int32 count of the valid prefix (on the
     device), and the carried state (its ``base`` still relative to x[0];
-    :func:`rebase_mm_state` shifts it for the next chunk)."""
-    return _mm_exact(x, state, omega_nominal, gain_omega, gain_mu,
-                     omega_relative_limit, clip_err=False)
+    :func:`rebase_mm_state` shifts it for the next chunk).  On the card,
+    one launch of the ``mm_fwd`` kernel."""
+    return _mm(x, state, omega_nominal, gain_omega, gain_mu,
+               omega_relative_limit, cc=False)
 
 
 def clock_recovery_mm_cc(
@@ -246,9 +262,10 @@ def clock_recovery_mm_cc(
 ) -> Tuple[torch.Tensor, torch.Tensor, MMState]:
     """M&M timing recovery on complex streams
     (digital_clock_recovery_mm_cc.cc:116-217: conjugated-decision error,
-    clipped to [-1, 1])."""
-    return _mm_exact(x, state, omega_nominal, gain_omega, gain_mu,
-                     omega_relative_limit, clip_err=True)
+    clipped to [-1, 1]).  On the card, one launch of the ``mm_fwd``
+    kernel."""
+    return _mm(x, state, omega_nominal, gain_omega, gain_mu,
+               omega_relative_limit, cc=True)
 
 
 def rebase_mm_state(state: MMState, consumed: int) -> MMState:

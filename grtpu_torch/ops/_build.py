@@ -4,7 +4,8 @@
 ``fir_common.cuh``; ``fir_decim.cu`` and ``fir_decim_mma.cu``, the
 decimating FIR's two routes, which include ``fir_decim.cuh``;
 ``trellis_viterbi.cu`` and ``atsc_dfe.cu``, the two recursion kernels;
-``iir1.cu``, the first-order IIR) for
+``iir1.cu``, the first-order IIR; ``mm_clock.cu``, the M&M clock
+recovery) for
 ``sm_90a`` into a shared library of its own with a plain C interface, all
 compilers started together, and the libraries are loaded with ``ctypes``.
 The decimating routes are two sources so that their instances, the most
@@ -37,7 +38,7 @@ from types import SimpleNamespace
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "fir_tile.cu", CSRC / "fir_decim.cu",
            CSRC / "fir_decim_mma.cu", CSRC / "trellis_viterbi.cu",
-           CSRC / "atsc_dfe.cu", CSRC / "iir1.cu")
+           CSRC / "atsc_dfe.cu", CSRC / "iir1.cu", CSRC / "mm_clock.cu")
 HEADERS = (CSRC / "fir_common.cuh", CSRC / "fir_decim.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -151,9 +152,10 @@ def library() -> SimpleNamespace:
     global _lib
     if _lib is not None:
         return _lib
-    tile, decim, decim_mma, viterbi, dfe, iir1 = (ctypes.CDLL(str(path))
-                                                  for path in build())
+    tile, decim, decim_mma, viterbi, dfe, iir1, mm = (
+        ctypes.CDLL(str(path)) for path in build())
     i, p, i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t
+    ll, f = ctypes.c_longlong, ctypes.c_float
     sigs = {
         tile: {
             "fir_tile_fwd": ([p, i, p, p] + [i] * 11 + [p], i),
@@ -186,6 +188,10 @@ def library() -> SimpleNamespace:
         iir1: {
             "iir1_fwd": ([p, p, p, i, p, p, i, p, i, i, i, i, i, p, p, p], i),
             "iir1_error_string": ([i], ctypes.c_char_p),
+        },
+        mm: {
+            "mm_fwd": ([p, ll] + [p] * 5 + [f] * 4 + [ll, i, i] + [p] * 7, i),
+            "mm_error_string": ([i], ctypes.c_char_p),
         },
     }
     lib = SimpleNamespace()

@@ -78,16 +78,17 @@ from grtpu_torch.ops.fir import (PRECISIONS, fir_filter, pad_last,
 LANE = 128
 
 # Kernel launch counts, by the name of the C entry that was called: the FIR
-# kernels here, the two recursion kernels of grtpu_torch.ops.cuda_trellis and
-# the first-order IIR of grtpu_torch.ops.cuda_iir, so that one record of a
-# CUDA-graph capture holds them all.  MODE_COUNTS name a mode of a launch
-# that its C entry's count already holds: ``fir_decim_cc`` counts the calls
-# of :func:`fir_decim_cc` that ran as one launch in the complex-taps mode.
+# kernels here, the two recursion kernels of grtpu_torch.ops.cuda_trellis,
+# the first-order IIR of grtpu_torch.ops.cuda_iir and the M&M clock recovery
+# of grtpu_torch.ops.cuda_mm, so that one record of a CUDA-graph capture
+# holds them all.  MODE_COUNTS name a mode of a launch that its C entry's
+# count already holds: ``fir_decim_cc`` counts the calls of
+# :func:`fir_decim_cc` that ran as one launch in the complex-taps mode.
 FIR_KERNELS = ("fir_tile_fwd", "fir_toeplitz_fwd", "fir_decim_fwd",
                "fir_decim_mma_fwd", "fir_cascade_fwd", "fir_cascade_mma_fwd")
 MODE_COUNTS = ("fir_decim_cc",)
 launches = dict.fromkeys(FIR_KERNELS + ("viterbi_fwd", "dfe_feedback_fwd",
-                                        "iir1_fwd") + MODE_COUNTS, 0)
+                                        "iir1_fwd", "mm_fwd") + MODE_COUNTS, 0)
 
 # Open records of CUDA-graph captures (recording_launches), innermost last.
 _recording = []

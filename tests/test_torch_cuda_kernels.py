@@ -191,7 +191,7 @@ def test_launch_counts(dev):
                      "fir_decim_fwd": 1, "fir_decim_mma_fwd": 1,
                      "fir_cascade_fwd": 1, "fir_cascade_mma_fwd": 0,
                      "viterbi_fwd": 0, "dfe_feedback_fwd": 0,
-                     "iir1_fwd": 0, "fir_decim_cc": 1}
+                     "iir1_fwd": 0, "mm_fwd": 0, "fir_decim_cc": 1}
 
 
 ODD_DECIM_CASES = [
